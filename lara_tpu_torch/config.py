@@ -1,0 +1,281 @@
+"""Layered YAML configuration: the same frozen dataclasses, defaults and
+merge rules as `lara_tpu/config.py`, so one YAML file configures both
+packages.
+
+The reference merges `configs/base.yaml ← [infer.yaml] ← CLI dotlist`
+(train_lightning.py:98-101, evaluation.py:180-184) with `${key}`
+interpolation (configs/base.yaml:35,47). `yaml` is imported inside the
+functions that parse text: the package itself must import without PyYAML.
+
+Usage:
+    cfg = load_config("configs/base.yaml", overrides=["train.lr=1e-4"])
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import re
+from typing import Any, Dict, List, Optional, Tuple
+
+# RenderConfig values the port accepts; the others are TPU A/B variants of
+# the binning that were not ported (see ROADMAP.md).
+_PORTED_MODES = {"bin_mode": ("sort",), "pack_mode": ("gather",)}
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Mirrors configs/base.yaml `model:` (lines 6-27)."""
+    encoder_backbone: str = "vit_base_patch16_224.dino"
+    encoder_dim: int = 768
+    encoder_depth: int = 12
+    encoder_heads: int = 12
+    patch_size: int = 16
+    encoder_pretrained_path: Optional[str] = None  # timm state-dict file (optional)
+    n_groups: Tuple[int, ...] = (16,)
+    n_offset_groups: int = 32
+    K: int = 2
+    sh_degree: int = 1
+    num_layers: int = 12
+    num_heads: int = 16
+    view_embed_dim: int = 32
+    embedding_dim: int = 256
+    vol_feat_reso: int = 16
+    vol_embedding_reso: int = 32
+    vol_embedding_out_dim: int = 80
+    ckpt_path: Optional[str] = None
+    scene_size: float = 0.5
+    # Training-memory knobs of the JAX package (remat, flash attention):
+    # accepted so the same YAML loads; the serving forward ignores them.
+    remat: bool = True
+    remat_policy: str = "full"
+    flash_attn: bool = False
+    remat_views: bool = True
+    remat_views_save: str = "bin,packed,entries,stash"
+    # Static surfel budget for the fine stage (replaces the dynamic boolean
+    # masking of lightning/network.py:465,479,504-511): the fine pass
+    # refines/re-renders the top-M surfels by opacity.
+    fine_budget: int = 131072
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    """Rasterizer knobs (no reference equivalent — CUDA had them compiled in).
+    backend "auto" → the CUDA blend kernel (the port's one backend).
+
+    `pallas_chunk` is the number of entries the blend kernel stages per
+    step. `pallas_tiles_per_step`, `pallas_cumsum` and `pallas_stash_carries`
+    are TPU kernel knobs: accepted so the same YAML loads, unused here."""
+    backend: str = "auto"
+    tile: int = 16
+    dup: int = 3
+    tile_budget: int = 128
+    tile_chunk: int = 32
+    eval_tile_budget: int = 512
+    # nearest-surfel compaction budget before dup-expansion (see
+    # RasterizeConfig.visible_budget); 0 = keep all candidates.
+    visible_budget: int = 131072
+    eval_visible_budget: int = 262144
+    # blend kernel: entries staged per step (clamped to the tile budget)
+    pallas_chunk: int = 64
+    pallas_tiles_per_step: int = 4      # TPU only, unused
+    # tile-window construction: only "sort" is ported
+    bin_mode: str = "sort"
+    # depth-compaction data movement: only "gather" is ported
+    pack_mode: str = "gather"
+    pallas_stash_carries: bool = True   # TPU only, unused (training)
+    pallas_cumsum: str = "shift"        # TPU only, unused
+
+    def __post_init__(self):
+        for name, allowed in _PORTED_MODES.items():
+            value = getattr(self, name)
+            if value not in allowed:
+                raise ValueError(
+                    f"{name}={value!r} is not implemented by lara_tpu_torch "
+                    f"(supported: {allowed})")
+
+
+@dataclasses.dataclass(frozen=True)
+class DatasetConfig:
+    """Mirrors configs/base.yaml `train_dataset:`/`test_dataset:` (29-49)."""
+    dataset_name: str = "gobjeverse"
+    data_root: str = "dataset/gobjaverse/gobjaverse.h5"
+    split: str = "train"
+    img_size: Tuple[int, int] = (512, 512)
+    n_group: int = 4
+    n_scenes: int = 3000000
+    load_normal: bool = True
+    batch_size: int = 3
+    num_workers: int = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Mirrors configs/base.yaml `train:` (51-64)."""
+    batch_size: int = 3
+    lr: float = 4e-4
+    beta1: float = 0.9
+    beta2: float = 0.95
+    weight_decay: float = 0.05
+    warmup_iters: int = 1000
+    n_epoch: int = 30
+    limit_train_batches: float = 0.2
+    limit_val_batches: float = 0.02
+    check_val_every_n_epoch: int = 1
+    start_fine: int = 5000
+    use_rand_views: bool = False
+    grad_accum: int = 2          # train_lightning.py:73
+    grad_clip: float = 0.5       # train_lightning.py:74
+    ckpt_every_n_epoch: int = 5  # train_lightning.py:58-64
+    vis_every_n_steps: int = 3000
+    seed: int = 0
+    # NaN sanitizer (torch.autograd.set_detect_anomaly(True),
+    # train_lightning.py:30). Off by default — it forces sync dispatch.
+    detect_anomaly: bool = False
+    # tensor-parallel width for the volume transformer's group axis
+    # (SURVEY.md §5.7); devices are arranged as (dp = n/tp, tp). 1 = pure
+    # data parallelism (the reference's DDP, train_lightning.py:68-72).
+    tp: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class LoggerConfig:
+    name: str = "tensorboard"
+    dir: str = "logs/default"
+
+
+@dataclasses.dataclass(frozen=True)
+class InferConfig:
+    """Mirrors configs/infer.yaml `infer:` options."""
+    ckpt_path: Optional[str] = None
+    save_folder: str = "outputs/"
+    eval_novel_view_only: bool = True
+    eval_depth: Tuple[float, ...] = ()
+    video_frames: int = 0
+    save_mesh: bool = False
+    mesh_video: bool = False
+    metric_path: str = "outputs/metrics"
+    render_img_scale: float = 1.0
+    # Hard-fail when LPIPS weights are missing/corrupt instead of skipping
+    # the metric (the reference always hard-fails, evaluation.py:48-49).
+    require_lpips: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    exp_name: str = "lara_tpu/dev"
+    n_views: int = 4
+    model: ModelConfig = ModelConfig()
+    render: RenderConfig = RenderConfig()
+    train_dataset: DatasetConfig = DatasetConfig()
+    test_dataset: DatasetConfig = dataclasses.field(
+        default_factory=lambda: DatasetConfig(split="test"))
+    train: TrainConfig = TrainConfig()
+    logger: LoggerConfig = LoggerConfig()
+    infer: InferConfig = InferConfig()
+    infer_dataset: DatasetConfig = dataclasses.field(
+        default_factory=lambda: DatasetConfig(split="test", num_workers=0))
+
+
+_INTERP = re.compile(r"^\$\{([a-zA-Z0-9_.]+)\}$")
+_INTERP_EMBED = re.compile(r"\$\{([a-zA-Z0-9_.]+)\}")
+
+
+def _deep_merge(base: Dict, over: Dict) -> Dict:
+    out = dict(base)
+    for k, v in over.items():
+        if isinstance(v, dict) and isinstance(out.get(k), dict):
+            out[k] = _deep_merge(out[k], v)
+        else:
+            out[k] = v
+    return out
+
+
+def _resolve_interp(node: Any, root: Dict) -> Any:
+    if isinstance(node, dict):
+        return {k: _resolve_interp(v, root) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_resolve_interp(v, root) for v in node]
+    if isinstance(node, str):
+        def lookup(key: str) -> Any:
+            cur: Any = root
+            for part in key.split("."):
+                cur = cur[part]
+            return cur
+
+        m = _INTERP.match(node)
+        if m:  # whole-string reference keeps the referenced type
+            return lookup(m.group(1))
+        # embedded references interpolate as strings ("logs/${exp_name}")
+        return _INTERP_EMBED.sub(lambda mm: str(lookup(mm.group(1))), node)
+    return node
+
+
+def _parse_value(s: str) -> Any:
+    import yaml
+    return yaml.safe_load(s)
+
+
+def _apply_dotlist(d: Dict, overrides: List[str]) -> Dict:
+    for item in overrides:
+        if "=" not in item:
+            raise ValueError(f"override must be key=value, got {item!r}")
+        key, val = item.split("=", 1)
+        cur = d
+        parts = key.split(".")
+        for p in parts[:-1]:
+            cur = cur.setdefault(p, {})
+        cur[parts[-1]] = _parse_value(val)
+    return d
+
+
+def _build(dc_type, data: Dict):
+    fields = {f.name: f for f in dataclasses.fields(dc_type)}
+    kwargs = {}
+    for k, v in data.items():
+        if k not in fields:
+            continue  # tolerate unknown keys (reference cfg.get style)
+        ft = fields[k].type
+        f_default = fields[k].default
+        if dataclasses.is_dataclass(f_default) and isinstance(v, dict):
+            kwargs[k] = _build(type(f_default), v)
+        elif isinstance(fields[k].default_factory(), tuple) if fields[k].default_factory is not dataclasses.MISSING else False:  # pragma: no cover
+            kwargs[k] = tuple(v)
+        elif fields[k].default_factory is not dataclasses.MISSING and isinstance(v, dict):
+            kwargs[k] = _build(type(fields[k].default_factory()), v)
+        elif isinstance(v, list):
+            kwargs[k] = tuple(v)
+        else:
+            kwargs[k] = v
+    return dc_type(**kwargs)
+
+
+def config_from_dict(data: Dict) -> Config:
+    data = _resolve_interp(data, data)
+    return _build(Config, data)
+
+
+def parse_cli(argv: List[str]) -> Tuple[List[str], List[str]]:
+    """Split CLI args into (yaml paths, key=value dotlist overrides) — the
+    argument convention shared by train.py / evaluate.py / eval_all.py
+    (reference: OmegaConf.from_cli, train_lightning.py:98-101)."""
+    paths, overrides = [], []
+    for a in argv:
+        if a.endswith((".yaml", ".yml")):
+            paths.append(a)
+        elif "=" in a:
+            overrides.append(a)
+        else:
+            raise SystemExit(f"unrecognized argument: {a!r}")
+    return paths, overrides
+
+
+def load_config(*paths: str, overrides: Optional[List[str]] = None) -> Config:
+    """Merge YAML files left-to-right, then apply `key.sub=value` overrides."""
+    import yaml
+    merged: Dict = {}
+    for path in paths:
+        with open(path) as f:
+            merged = _deep_merge(merged, yaml.safe_load(f) or {})
+    if overrides:
+        merged = _apply_dotlist(merged, list(overrides))
+    return config_from_dict(merged)

@@ -1,0 +1,43 @@
+"""Import hygiene of the port: every module of `lara_tpu_torch` imports in a
+fresh interpreter without pulling in JAX, flax, the JAX package, PyYAML,
+h5py or OpenCV (the GPU machine has none of the last three)."""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+FORBIDDEN = ("jax", "flax", "lara_tpu", "yaml", "h5py", "cv2")
+REPO = Path(__file__).resolve().parents[1]
+
+_PROBE = """
+import importlib, json, pkgutil, sys
+import lara_tpu_torch
+names = ["lara_tpu_torch"] + [m.name for m in pkgutil.walk_packages(
+    lara_tpu_torch.__path__, "lara_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+print(json.dumps({"modules": names,
+                  "loaded": sorted({m.split(".")[0] for m in sys.modules})}))
+"""
+
+
+@pytest.fixture(scope="module")
+def probe():
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_every_module_imports(probe):
+    expected = {"lara_tpu_torch.models.lara", "lara_tpu_torch.ops.rasterizer.cuda_blend",
+                "lara_tpu_torch.train.step", "lara_tpu_torch.config"}
+    assert expected <= set(probe["modules"])
+
+
+@pytest.mark.parametrize("name", FORBIDDEN)
+def test_no_forbidden_import(probe, name):
+    assert name not in probe["loaded"]

@@ -17,9 +17,25 @@ import dataclasses
 import re
 from typing import Any, Dict, List, Optional, Tuple
 
-# RenderConfig values the port accepts; the others are TPU A/B variants of
-# the binning that were not ported (see ROADMAP.md).
-_PORTED_MODES = {"bin_mode": ("sort",), "pack_mode": ("gather",)}
+# Values the port accepts; any other would silently run another path than
+# the one asked for, so it raises (see ROADMAP.md for what is still to port):
+# bin_mode/pack_mode: TPU A/B variants of the binning; pallas_stash_carries
+# False: the replay backward kernel; remat_policy "dots"; flash_attn True:
+# the flash-attention kernel.
+_PORTED_MODES = {
+    "RenderConfig": {"bin_mode": ("sort",), "pack_mode": ("gather",),
+                     "pallas_stash_carries": (True,)},
+    "ModelConfig": {"remat_policy": ("full",), "flash_attn": (False,)},
+}
+
+
+def _check_ported(cfg) -> None:
+    for name, allowed in _PORTED_MODES[type(cfg).__name__].items():
+        value = getattr(cfg, name)
+        if value not in allowed:
+            raise ValueError(
+                f"{name}={value!r} is not implemented by lara_tpu_torch "
+                f"(supported: {allowed})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,8 +60,13 @@ class ModelConfig:
     vol_embedding_out_dim: int = 80
     ckpt_path: Optional[str] = None
     scene_size: float = 0.5
-    # Training-memory knobs of the JAX package (remat, flash attention):
-    # accepted so the same YAML loads; the serving forward ignores them.
+    # Training-memory knobs. `remat` checkpoints each ViT block and each
+    # volume-transformer layer (torch.utils.checkpoint) when gradients are
+    # on; only remat_policy "full" and flash_attn False are ported.
+    # remat_views / remat_views_save exist for the TPU's lane-padded layout
+    # (lara_tpu/models/lara.py:243-258): the port keeps every render's
+    # residuals (the flagship B=3 step fits an H100, PERF.md) and accepts
+    # them only so the same YAML loads.
     remat: bool = True
     remat_policy: str = "full"
     flash_attn: bool = False
@@ -56,15 +77,20 @@ class ModelConfig:
     # refines/re-renders the top-M surfels by opacity.
     fine_budget: int = 131072
 
+    def __post_init__(self):
+        _check_ported(self)
+
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     """Rasterizer knobs (no reference equivalent — CUDA had them compiled in).
     backend "auto" → the CUDA blend kernel (the port's one backend).
 
-    `pallas_chunk` is the number of entries the blend kernel stages per
-    step. `pallas_tiles_per_step`, `pallas_cumsum` and `pallas_stash_carries`
-    are TPU kernel knobs: accepted so the same YAML loads, unused here."""
+    `pallas_chunk` is the number of entries the blend kernels stage per
+    step. `pallas_stash_carries` must stay True: training always runs the
+    stash forward and the replay-free backward. `pallas_tiles_per_step` and
+    `pallas_cumsum` are TPU kernel knobs: accepted so the same YAML loads,
+    unused here."""
     backend: str = "auto"
     tile: int = 16
     dup: int = 3
@@ -82,16 +108,11 @@ class RenderConfig:
     bin_mode: str = "sort"
     # depth-compaction data movement: only "gather" is ported
     pack_mode: str = "gather"
-    pallas_stash_carries: bool = True   # TPU only, unused (training)
+    pallas_stash_carries: bool = True   # False (replay backward) not ported
     pallas_cumsum: str = "shift"        # TPU only, unused
 
     def __post_init__(self):
-        for name, allowed in _PORTED_MODES.items():
-            value = getattr(self, name)
-            if value not in allowed:
-                raise ValueError(
-                    f"{name}={value!r} is not implemented by lara_tpu_torch "
-                    f"(supported: {allowed})")
+        _check_ported(self)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,8 +1,9 @@
-// Per-tile 2DGS surfel blend, forward only: the Hopper kernel behind
+// Per-tile 2DGS surfel blend, forward: the Hopper kernel behind
 // lara_tpu_torch/ops/rasterizer/cuda_blend.py:blend_tiles.
 //
 // Replaces the TPU kernel lara_tpu/ops/rasterizer/pallas_blend.py
-// (_fwd_kernel -> _fwd_one_tile -> _chunk_fn, launched by _run_fwd).
+// (_fwd_kernel -> _fwd_one_tile -> _chunk_fn, launched by _run_fwd), with
+// and without its stash outputs (_run_fwd(stash=True)).
 //
 // What it computes. For each 16x16 tile, the depth-sorted window of packed
 // rows [K, 13] (center_cam, au, bv, rgb, opacity) is composited front to
@@ -31,6 +32,22 @@
 //  - a thread that is done skips the math, and the block leaves its tile
 //    as soon as every pixel is done (__syncthreads_count), so opaque tiles
 //    read only the chunks they need.
+//
+// Stash (training; `stash` non-null). The backward kernel (blend_bwd.cu)
+// walks the processed chunks in reverse and needs, per pixel, each chunk's
+// carry-in and the final carry. So the kernel writes the carry
+// (T, A, M1, M2) at the start of every chunk it processes, into slot ci of
+// stash [T, budget/chunk + 1, 4, 256], then the carry after the last chunk
+// into slot ndone, and the processed-chunk count into ndone[tile] (the
+// iteration at which the __syncthreads_count exit fires, or budget/chunk
+// runs out). Slots past ndone are not written. A pixel that dies inside a
+// chunk keeps the T of the entry that killed it (T * (1 - alpha) <
+// transmittance_min): it is stashed so in every later slot. The JAX carry
+// keeps multiplying by (1 - alpha) instead; both stay below
+// transmittance_min, and the backward only tests T >= transmittance_min,
+// so either gives the same gradients. With `stash` null (serving) the same
+// code writes nothing more and the outputs are bit for bit the same.
+//
 // No fast-math, and no FMA contraction (--fmad=false): the alpha >=
 // alpha_min cull and the T > 0.5 median test are threshold decisions, and
 // alpha is computed with the same correctly rounded operations, in the same
@@ -58,7 +75,9 @@ struct Params {
 __global__ void blend_fwd_kernel(const float* __restrict__ entries,
                                  const int* __restrict__ counts,
                                  const float* __restrict__ scalars,
-                                 float* __restrict__ out, Params p) {
+                                 float* __restrict__ out,
+                                 float* __restrict__ stash,
+                                 int* __restrict__ ndone, Params p) {
   extern __shared__ float sm[];  // [kNumFields][chunk]
   const int t = blockIdx.x;
   const int pid = threadIdx.x;
@@ -79,9 +98,22 @@ __global__ void blend_fwd_kernel(const float* __restrict__ entries,
   float med = 0.f, nx = 0.f, ny = 0.f, nz = 0.f, dist = 0.f;
   float m1 = 0.f, m2 = 0.f;  // sum w*m and sum w*m^2 (A is acc_a)
 
+  // stash slot ci of this tile and pixel: stash[t][ci][j][pid]
+  const int slots = p.budget / p.chunk + 1;
+  auto stash_carry = [&](int ci) {
+    float* s = stash + ((size_t)t * slots + ci) * 4 * npix + pid;
+    s[0] = T;
+    s[npix] = acc_a;
+    s[2 * npix] = m1;
+    s[3 * npix] = m2;
+  };
+
   const float* tile_rows = entries + (size_t)t * p.budget * kPackCols;
+  int ci = 0;
   for (int k0 = 0; k0 < n; k0 += p.chunk) {
     const int m = min(p.chunk, n - k0);
+    if (stash != nullptr) stash_carry(ci);
+    ++ci;
     for (int j = pid; j < m; j += npix) {
       const float* r = tile_rows + (size_t)(k0 + j) * kPackCols;
       const float cx = r[0], cy = r[1], cz = r[2];
@@ -169,6 +201,10 @@ __global__ void blend_fwd_kernel(const float* __restrict__ entries,
     // done once no pixel has transmittance left
     if (__syncthreads_count(T >= p.t_min) == 0) break;
   }
+  if (stash != nullptr) {
+    stash_carry(ci);
+    if (pid == 0) ndone[t] = ci;
+  }
 
   float* o = out + (size_t)t * kNumChannels * npix + pid;
   o[0 * npix] = acc_r;
@@ -185,8 +221,11 @@ __global__ void blend_fwd_kernel(const float* __restrict__ entries,
 
 }  // namespace
 
+// `stash` and `ndone` may be null (no stash); otherwise stash is f32
+// [num_tiles, budget/chunk + 1, 4, tile*tile] and ndone int32 [num_tiles].
 extern "C" int lara_blend_fwd(const float* entries, const int* counts,
-                              const float* scalars, float* out, int num_tiles,
+                              const float* scalars, float* out, float* stash,
+                              int* ndone, int num_tiles,
                               int tiles_x, int tile, int width, int height,
                               int budget, int chunk, float alpha_min,
                               float t_min, float near_cull, float dist_near,
@@ -197,6 +236,7 @@ extern "C" int lara_blend_fwd(const float* entries, const int* counts,
   const size_t smem = sizeof(float) * kNumFields * chunk;
   blend_fwd_kernel<<<num_tiles, tile * tile, smem,
                      static_cast<cudaStream_t>(stream)>>>(entries, counts,
-                                                          scalars, out, p);
+                                                          scalars, out, stash,
+                                                          ndone, p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,7 @@
 """LaRa network: multi-view images → 2D Gaussian surfels → rendered views,
 the counterpart of `lara_tpu/models/lara.py` (lightning/network.py:286-533)
-for the serving forward.
+for the serving forward and the training step (`train=True`: train raster
+budgets, gradients through every render, coarse renders included).
 
 The network runs under `torch.autocast` in `dtype` (bf16 by default, the
 JAX package's working type; f32 disables autocast). Geometry, the
@@ -81,14 +82,14 @@ class LaRaNet(nn.Module):
         m = cfg.model
         with torch.device("meta"):
             self.img_encoder = DinoViT(m.encoder_dim, m.encoder_depth,
-                                       m.encoder_heads, m.patch_size)
+                                       m.encoder_heads, m.patch_size, remat=m.remat)
             self.dir_norm = ModLN(m.encoder_dim, 32)
             self.view_embed = (nn.Parameter(torch.empty(1, 4, m.view_embed_dim, 1, 1, 1))
                                if m.view_embed_dim > 0 else None)
             self.vol_decoder = VolTransformer(
                 m.embedding_dim, m.encoder_dim + m.view_embed_dim, m.n_groups,
                 m.vol_embedding_reso, m.vol_embedding_out_dim, m.num_layers,
-                m.num_heads)
+                m.num_heads, remat=m.remat)
             self.sh_dim = (m.sh_degree + 1) ** 2 * 3
             self.decoder = Decoder(m.vol_embedding_out_dim, self.sh_dim, m.K)
         self.to_empty(device="cpu")
@@ -284,11 +285,16 @@ class LaRaNet(nn.Module):
         M = min(m.fine_budget, centers.shape[1])
         h, w = img_hw
         wh = torch.tensor([w, h], dtype=torch.float32, device=centers.device)
-        op_act = torch.sigmoid(opacity_c[..., 0])
+        # the selection is integer state: no gradient through the score
+        # (stop_gradient in the JAX package)
+        op_act = torch.sigmoid(opacity_c[..., 0].detach())
         score = torch.where(op_act > 0.005, op_act, -1.0)
 
         sh_out, masks = [], []
         for b in range(centers.shape[0]):
+            # torch.topk may order equal scores unlike lax.top_k; the ties
+            # that occur are at the -1 floor, and those entries are
+            # deselected (vals <= 0), so the rendered set is the same
             vals, idx = torch.topk(score[b], M)
             c_sel = centers[b][idx]
             vol_sel = volume_feat_up[b][idx // m.K]     # K surfels per voxel

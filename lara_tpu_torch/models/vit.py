@@ -12,6 +12,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from lara_tpu_torch.models.attention import attend
+from lara_tpu_torch.models.remat import maybe_remat
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -64,9 +65,9 @@ class TimmViT(nn.Module):
     """timm VisionTransformer structure and state-dict names."""
 
     def __init__(self, dim: int, depth: int, num_heads: int, patch: int = 16,
-                 native_grid: int = 14):
+                 native_grid: int = 14, remat: bool = False):
         super().__init__()
-        self.native_grid = native_grid
+        self.native_grid, self.remat = native_grid, remat
         self.patch_embed = PatchEmbed(dim, patch)
         self.cls_token = nn.Parameter(torch.empty(1, 1, dim))
         self.pos_embed = nn.Parameter(torch.empty(1, native_grid * native_grid + 1, dim))
@@ -90,7 +91,7 @@ class TimmViT(nn.Module):
         cls_tok = (self.cls_token + pos_cls).expand(b, -1, -1).to(x.dtype)
         x = torch.cat([cls_tok, x], dim=1)
         for blk in self.blocks:
-            x = blk(x)
+            x = maybe_remat(self.remat, blk, x)
         return self.norm(x)[:, 1:]                       # drop CLS
 
 
@@ -99,9 +100,9 @@ class DinoViT(nn.Module):
     patch tokens [B, (H/p)(W/p), dim]; the timm model sits under `model`."""
 
     def __init__(self, dim: int = 768, depth: int = 12, num_heads: int = 12,
-                 patch_size: int = 16):
+                 patch_size: int = 16, remat: bool = False):
         super().__init__()
-        self.model = TimmViT(dim, depth, num_heads, patch_size)
+        self.model = TimmViT(dim, depth, num_heads, patch_size, remat=remat)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         mean = torch.tensor(IMAGENET_MEAN, dtype=images.dtype, device=images.device)

@@ -16,6 +16,7 @@ import torch
 import torch.nn as nn
 
 from lara_tpu_torch.models.attention import MultiHeadAttention
+from lara_tpu_torch.models.remat import maybe_remat
 
 
 def group_volume(x: torch.Tensor, block: int) -> torch.Tensor:
@@ -108,8 +109,10 @@ class VolTransformer(nn.Module):
     final 2× transposed-conv upsample (lightning/network.py:105-164)."""
 
     def __init__(self, embed_dim: int, image_feat_dim: int, n_groups: Sequence[int],
-                 vol_low_res: int, out_dim: int, num_layers: int, num_heads: int):
+                 vol_low_res: int, out_dim: int, num_layers: int, num_heads: int,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.block_sizes = [vol_low_res // n for n in n_groups]
         r = vol_low_res
         self.pos_embed = nn.Parameter(torch.empty(1, embed_dim, r, r, r))
@@ -124,6 +127,7 @@ class VolTransformer(nn.Module):
         b = image_feats.shape[0]
         x = _channels_last(self.pos_embed).expand(b, -1, -1, -1, -1)
         for i, layer in enumerate(self.layers):
-            x = layer(x, image_feats, self.block_sizes[i % len(self.block_sizes)])
+            x = maybe_remat(self.remat, layer, x, image_feats,
+                            self.block_sizes[i % len(self.block_sizes)])
         x = self.norm(x)
         return _channels_last(self.deconv(_channels_first(x)))

@@ -1,16 +1,25 @@
-"""Per-tile surfel compositing: the hand-written CUDA kernel and its plain
-PyTorch version — the counterpart of `lara_tpu/ops/rasterizer/pallas_blend.py`
-(forward only; the backward kernels belong to training).
+"""Per-tile surfel compositing: the hand-written CUDA kernels and their
+plain PyTorch version, the counterpart of
+`lara_tpu/ops/rasterizer/pallas_blend.py` (`blend_tiles_pallas` and its
+custom VJP with `pallas_stash_carries=True`).
 
-`blend_tiles` launches `csrc/blend_fwd.cu` for CUDA tensors and raises if the
-kernel cannot be built or launched; for CPU tensors it runs
-`blend_tiles_reference`. Both return the same raw accumulators
-[T, NUM_CHANNELS, tile²]: rgb, alpha, depth sum, median depth, normal xyz,
-distortion (no background blend, unnormalized depth).
+`blend_tiles` returns the raw accumulators [T, NUM_CHANNELS, tile²]: rgb,
+alpha, depth sum, median depth, normal xyz, distortion (no background
+blend, unnormalized depth).
+  - CPU tensors run `blend_tiles_reference` under ordinary autograd: it is
+    the plain version of both kernels.
+  - CUDA tensors launch `csrc/blend_fwd.cu`. When autograd will need the
+    gradient of `entries`, the forward writes its stash (per-chunk carries
+    and processed-chunk counts) and the backward launches
+    `csrc/blend_bwd.cu` on it; the median's gradient is 0 in both
+    versions, as in the TPU kernel. A kernel that cannot be built or
+    launched raises: nothing falls back.
 
-The library is compiled at first use with nvcc into
-`build/lara_tpu_torch/` of the checkout, keyed by a hash of the source and
-flags, and bound with ctypes (plain C entry point, no PyTorch headers).
+Each wrapper counts its launches in `LAUNCHES` (forward, forward with
+stash, backward). The libraries are compiled at first use with nvcc into
+`build/lara_tpu_torch/` of the checkout, one nvcc per source started
+together, keyed by a hash of the source and flags, and bound with ctypes
+(plain C entry points, no PyTorch headers).
 """
 
 from __future__ import annotations
@@ -29,17 +38,33 @@ from lara_tpu_torch.ops.rasterizer.types import RasterizeConfig
 NUM_CHANNELS = 10   # rgb3 + alpha + depth_sum + depth_med + normal3 + dist
 PACK_COLS = 13
 MAX_CHUNK = 512     # 19 staged f32 per entry must fit 48 KB of shared memory
+# the backward keeps T of every chunk entry for every pixel ([chunk, 256]
+# f32) and the per-warp partial sums in shared memory: 219 KB at 128
+MAX_BWD_CHUNK = 128
 
-_SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "blend_fwd.cu"
+_CSRC = Path(__file__).resolve().parents[2] / "csrc"
+_SOURCES = {"fwd": _CSRC / "blend_fwd.cu", "bwd": _CSRC / "blend_bwd.cu"}
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "lara_tpu_torch"
 # --fmad=false: every product and sum rounds on its own, as in the plain
 # version's elementwise ops, so alpha is computed bit for bit alike and the
-# alpha >= alpha_min cull takes the same decisions in both
+# alpha >= alpha_min cull takes the same decisions in both; the backward's
+# forward walk repeats the forward kernel's decisions exactly
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
                "-Xptxas", "-v"]
-_lib = None
-build_log = ""      # nvcc's output (registers, shared memory) of this process's build
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = {
+    "fwd": ("lara_blend_fwd", [_P] * 6 + [_I] * 7 + [_F] * 6 + [_P]),
+    "bwd": ("lara_blend_bwd", [_P] * 7 + [_I] * 7 + [_F] * 6 + [_P]),
+}
+_libs: dict = {}
+build_log = ""      # nvcc's output (registers, shared memory) of this process's builds
+LAUNCHES = {"blend_fwd": 0, "blend_fwd_stash": 0, "blend_bwd": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 def _nvcc() -> str:
@@ -53,32 +78,39 @@ def _nvcc() -> str:
     return str(path)
 
 
-def build_library() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the blend library."""
-    global _lib, build_log
-    if _lib is not None:
-        return _lib
-    src = _SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    so_path = _BUILD_DIR / f"blend_fwd_{key}.so"
-    if not so_path.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so_path.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)],
-            capture_output=True, text=True)
+def build_library() -> dict:
+    """Compile (once per source hash) and load both kernel libraries: one
+    nvcc process per source, all started before any is waited for.
+    Returns {"fwd": CDLL, "bwd": CDLL}."""
+    global build_log
+    if _libs:
+        return _libs
+    paths, procs = {}, {}
+    for name, src in _SOURCES.items():
+        key = hashlib.sha256(src.read_bytes() + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
+        paths[name] = _BUILD_DIR / f"{src.stem}_{key}.so"
+        if not paths[name].exists():
+            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = paths[name].with_suffix(f".{os.getpid()}.tmp")
+            procs[name] = (tmp, subprocess.Popen(
+                [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = []
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build {_SOURCE}:\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, so_path)
-        build_log = proc.stdout + proc.stderr
-    lib = ctypes.CDLL(str(so_path))
-    fn = lib.lara_blend_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                   + [ctypes.c_float] * 6 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    _lib = lib
-    return lib
+            raise RuntimeError(f"nvcc failed to build {_SOURCES[name]}:\n{out}")
+        os.replace(tmp, paths[name])
+        logs.append(out)
+    build_log = "".join(logs)
+    libs = {}
+    for name, (sym, argtypes) in _ARGTYPES.items():
+        lib = ctypes.CDLL(str(paths[name]))
+        fn = getattr(lib, sym)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        libs[name] = lib
+    _libs.update(libs)
+    return _libs
 
 
 def _check_inputs(entries, counts, scalars, cfg: RasterizeConfig):
@@ -99,48 +131,126 @@ def _check_inputs(entries, counts, scalars, cfg: RasterizeConfig):
     return t, p
 
 
+def _cuda_args(dev, *tensors):
+    for x in tensors:
+        if x.device != dev:
+            raise ValueError(f"a blend input is on {x.device}, entries on {dev}")
+    return [x.contiguous() for x in tensors]
+
+
+def _raster_args(cfg: RasterizeConfig):
+    return (cfg.num_tiles, cfg.tiles_x, cfg.tile, cfg.width, cfg.height,
+            cfg.tile_budget, cfg.pallas_chunk, cfg.alpha_min,
+            cfg.transmittance_min, cfg.near_cull, cfg.dist_near,
+            cfg.dist_far, cfg.filter2d_invsq)
+
+
+def _raise_on(err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed (cudaError {err})")
+
+
+def blend_fwd(entries, counts, scalars, cfg: RasterizeConfig, stash: bool = False):
+    """Launch `blend_fwd.cu` on CUDA tensors. Returns the accumulators
+    [T, 10, P], and with `stash` also the carries
+    [T, budget/chunk + 1, 4, P] (slots past ndone unwritten) and the
+    processed-chunk counts ndone int32 [T]."""
+    t, p = _check_inputs(entries, counts, scalars, cfg)
+    entries, counts, scalars = _cuda_args(entries.device, entries, counts, scalars)
+    dev = entries.device
+    lib = build_library()["fwd"]
+    out = torch.empty((t, NUM_CHANNELS, p), dtype=torch.float32, device=dev)
+    carries = ndone = None
+    if stash:
+        slots = cfg.tile_budget // cfg.pallas_chunk + 1
+        carries = torch.empty((t, slots, 4, p), dtype=torch.float32, device=dev)
+        ndone = torch.empty((t,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.lara_blend_fwd(
+            entries.data_ptr(), counts.data_ptr(), scalars.data_ptr(),
+            out.data_ptr(), None if carries is None else carries.data_ptr(),
+            None if ndone is None else ndone.data_ptr(),
+            *_raster_args(cfg), stream)
+    _raise_on(err, "blend_fwd")
+    LAUNCHES["blend_fwd_stash" if stash else "blend_fwd"] += 1
+    return (out, carries, ndone) if stash else out
+
+
+def blend_bwd(entries, counts, scalars, carries, ndone, cot,
+              cfg: RasterizeConfig) -> torch.Tensor:
+    """Launch `blend_bwd.cu` on CUDA tensors: the gradient [T, K, 13] of
+    the entries from the cotangent `cot` [T, 10, P] of the accumulators
+    (channel 5, the median, is ignored) and the stash of
+    `blend_fwd(..., stash=True)`."""
+    t, p = _check_inputs(entries, counts, scalars, cfg)
+    if cfg.pallas_chunk > MAX_BWD_CHUNK or p != 256:
+        raise ValueError(f"the blend backward takes 16×16 tiles and "
+                         f"pallas_chunk ≤ {MAX_BWD_CHUNK}")
+    dev = entries.device
+    entries, counts, scalars, carries, ndone, cot = _cuda_args(
+        dev, entries, counts, scalars, carries, ndone, cot.to(torch.float32))
+    lib = build_library()["bwd"]
+    grad = torch.empty_like(entries)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.lara_blend_bwd(
+            entries.data_ptr(), counts.data_ptr(), scalars.data_ptr(),
+            carries.data_ptr(), ndone.data_ptr(), cot.data_ptr(),
+            grad.data_ptr(), *_raster_args(cfg), stream)
+    _raise_on(err, "blend_bwd")
+    LAUNCHES["blend_bwd"] += 1
+    return grad
+
+
+class _BlendFunction(torch.autograd.Function):
+    """The stash forward and the backward kernel as one differentiable op
+    (the counterpart of `blend_tiles_pallas`'s custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, entries, counts, scalars, cfg):
+        out, carries, ndone = blend_fwd(entries, counts, scalars, cfg, stash=True)
+        ctx.save_for_backward(entries, counts, scalars, carries, ndone)
+        ctx.cfg = cfg
+        return out
+
+    @staticmethod
+    def backward(ctx, cot):
+        entries, counts, scalars, carries, ndone = ctx.saved_tensors
+        return blend_bwd(entries, counts, scalars, carries, ndone, cot, ctx.cfg), None, None, None
+
+
 def blend_tiles(entries: torch.Tensor, counts: torch.Tensor,
                 scalars: torch.Tensor, cfg: RasterizeConfig) -> torch.Tensor:
     """entries [T, K, 13] depth-sorted per-tile windows; counts [T] int32;
     scalars [2] = (tanfovx, tanfovy). Returns raw accumulators
-    [T, NUM_CHANNELS, tile²]. CUDA tensors launch the kernel (and count the
-    launch in `blend_tiles.launches`); CPU tensors take the plain version."""
-    t, p = _check_inputs(entries, counts, scalars, cfg)
+    [T, NUM_CHANNELS, tile²], differentiable in `entries`. CUDA tensors
+    launch the kernels; CPU tensors take the plain version."""
+    _check_inputs(entries, counts, scalars, cfg)
     dev = entries.device
     if dev.type == "cpu":
         return blend_tiles_reference(entries, counts, scalars, cfg)
     if dev.type != "cuda":
         raise ValueError(f"blend_tiles runs on cuda or cpu tensors, not {dev}")
-    for name, x in (("counts", counts), ("scalars", scalars)):
-        if x.device != dev:
-            raise ValueError(f"{name} is on {x.device}, entries on {dev}")
-    entries, counts, scalars = (x.contiguous() for x in (entries, counts, scalars))
-    lib = build_library()
-    out = torch.empty((t, NUM_CHANNELS, p), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.lara_blend_fwd(
-            entries.data_ptr(), counts.data_ptr(), scalars.data_ptr(),
-            out.data_ptr(), t, cfg.tiles_x, cfg.tile, cfg.width, cfg.height,
-            cfg.tile_budget, cfg.pallas_chunk, cfg.alpha_min,
-            cfg.transmittance_min, cfg.near_cull, cfg.dist_near, cfg.dist_far,
-            cfg.filter2d_invsq, stream)
-    if err != 0:
-        raise RuntimeError(f"blend_fwd kernel launch failed (cudaError {err})")
-    blend_tiles.launches += 1
-    return out
-
-
-blend_tiles.launches = 0
+    if torch.is_grad_enabled() and entries.requires_grad:
+        return _BlendFunction.apply(entries, counts, scalars, cfg)
+    return blend_fwd(entries, counts, scalars, cfg)
 
 
 def blend_tiles_reference(entries: torch.Tensor, counts: torch.Tensor,
-                          scalars: torch.Tensor, cfg: RasterizeConfig) -> torch.Tensor:
+                          scalars: torch.Tensor, cfg: RasterizeConfig,
+                          return_stash: bool = False):
     """Plain PyTorch version of the blend: `_chunk_fn` + the `_fwd_one_tile`
     chunk loop of the TPU kernel, vectorized over tiles. Log-domain
     transmittance with an inclusive cumsum per chunk (pallas_cumsum
     "shift"); a tile stops taking chunks once its count is exhausted or
-    every pixel's transmittance is below `transmittance_min`."""
+    every pixel's transmittance is below `transmittance_min`.
+
+    Differentiable in `entries` under autograd, with the median's gradient
+    0 as in the TPU kernel. With `return_stash`, also returns what the
+    stash forward writes: the carries [T, budget/chunk + 1, 4, P] (slot ci
+    holds chunk ci's carry-in, slots from ndone on the final carry) and
+    ndone int32 [T]."""
     dev = entries.device
     f32 = torch.float32
     t_tiles, p, chunk = cfg.num_tiles, cfg.tile * cfg.tile, cfg.pallas_chunk
@@ -163,10 +273,14 @@ def blend_tiles_reference(entries: torch.Tensor, counts: torch.Tensor,
     t_run, a_run, m1_run, m2_run = torch.ones_like(zeros()), zeros(), zeros(), zeros()
     acc = [zeros() for _ in range(9)]
     med = zeros()
+    carries, ndone = [], torch.zeros((t_tiles,), dtype=torch.int32, device=dev)
     for k0 in range(0, cfg.tile_budget, chunk):
+        if return_stash:
+            carries.append(torch.cat([t_run, a_run, m1_run, m2_run], dim=1))
         active = (k0 < n) & (torch.amax(t_run, dim=2, keepdim=True) >= cfg.transmittance_min)
         if not bool(active.any()):
             break
+        ndone = ndone + active[:, 0, 0].to(torch.int32)
         rows = entries[:, k0:k0 + chunk, :].to(f32)                   # [T,C,13]
         (cx, cy, cz, au0, au1, au2, bv0, bv1, bv2,
          rr, gg, bb, op) = (rows[..., c:c + 1] for c in range(PACK_COLS))
@@ -217,7 +331,8 @@ def blend_tiles_reference(entries: torch.Tensor, counts: torch.Tensor,
         # median: depth of the last entry with w > 0 while T > 0.5
         mmask = (t_excl > 0.5) & (w > 0.0)
         midx = torch.amax(torch.where(mmask, kk, -1), dim=1, keepdim=True)
-        dsel = torch.gather(depth, 1, torch.clamp(midx, min=0))
+        # no gradient through the median, as in the TPU kernel's VJP
+        dsel = torch.gather(depth.detach(), 1, torch.clamp(midx, min=0))
         new_med = torch.where(midx >= 0, dsel, med)
 
         acc = [torch.where(active, a + pa, a) for a, pa in zip(acc, partials)]
@@ -228,4 +343,9 @@ def blend_tiles_reference(entries: torch.Tensor, counts: torch.Tensor,
         m2_run = torch.where(active, m2_run + wm2.sum(1, keepdim=True), m2_run)
 
     img_r, img_g, img_b, a_acc, dsum, nx, ny, nz, dist = acc
-    return torch.cat([img_r, img_g, img_b, a_acc, dsum, med, nx, ny, nz, dist], dim=1)
+    out = torch.cat([img_r, img_g, img_b, a_acc, dsum, med, nx, ny, nz, dist], dim=1)
+    if not return_stash:
+        return out
+    final = torch.cat([t_run, a_run, m1_run, m2_run], dim=1)
+    carries += [final] * (cfg.tile_budget // chunk + 1 - len(carries))
+    return out, torch.stack(carries, dim=1), ndone

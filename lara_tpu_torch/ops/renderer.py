@@ -72,9 +72,12 @@ def _postprocess(out, camera: Camera, rays, depth_ratio: float):
         "rend_dist": out.distortion,
     }
     if rays is not None:
-        # finite-difference surface normal, alpha-masked
+        # finite-difference surface normal, alpha-masked with the alpha
+        # detached as the reference's `surf_normal * render_alpha.detach()`
+        # (renderer_2dgs.py:254): the normal-consistency loss gets no
+        # gradient path through the opacity accumulator
         dn, _ = depth_to_normal(rays, surf_depth)
-        frame["depth_normal"] = dn * out.alpha[..., None]
+        frame["depth_normal"] = dn * out.alpha.detach()[..., None]
     return frame
 
 

@@ -50,7 +50,7 @@ def _stage_timers(net, times):
     from lara_tpu_torch.ops.rasterizer import api, cuda, cuda_blend
 
     def timed(name, fn):
-        @functools.wraps(fn)   # copies blend_tiles.launches, which the kernel wrapper bumps
+        @functools.wraps(fn)
         def w(*a, **k):
             torch.cuda.synchronize()
             t0 = time.perf_counter()

@@ -1,0 +1,72 @@
+"""Training losses, the counterpart of `lara_tpu/train/loss.py`
+(lightning/loss.py):
+
+loss = MSE + 0.5·(1 − MS-SSIM)                  (coarse and fine heads)
+     + 1000·distortion   (coarse only, gated to step > 1000)
+     + 0.2·normal-consistency (same gate; alpha mask detached)
+
+`step` counts optimizer steps (the reference's global_step). The gates are
+multiplications by 0 or 1, as in the JAX package, so every term is
+computed at every step. MS-SSIM runs in float32 (`ops/msssim.py`).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+
+from lara_tpu_torch.ops.msssim import _MSSSIM_WEIGHTS, ms_ssim
+
+
+def _num_scales(h: int, w: int, win: int = 11) -> int:
+    # smallest scale must stay larger than the window
+    n = int(math.floor(math.log2(min(h, w) / win))) + 1
+    return max(1, min(5, n))
+
+
+def compute_losses(batch: Dict, output: Dict, step) -> Tuple[torch.Tensor, Dict]:
+    """batch/output follow the [B, N, H, W, ...] layout of LaRaNet.
+    Returns (scalar loss, stats dict of scalar tensors) with the stats keys
+    of the JAX package."""
+    tar = batch["tar_rgb"].float()
+    B, N, H, W, _ = tar.shape
+    stats: Dict[str, torch.Tensor] = {}
+    loss = torch.zeros((), dtype=torch.float32, device=tar.device)
+
+    weights = _MSSSIM_WEIGHTS[:_num_scales(H, W)]
+    weights = tuple(w / sum(weights) for w in weights)
+    gate = 1.0 if int(step) > 1000 else 0.0
+
+    for prex in ("", "_fine"):
+        if f"image{prex}" not in output:
+            continue
+        img = output[f"image{prex}"].float()
+        mse = torch.mean((img - tar) ** 2)
+        loss = loss + mse
+        stats[f"mse{prex}"] = mse
+        stats[f"psnr{prex}"] = -10.0 * torch.log(mse) / math.log(10.0)
+
+        # views tiled horizontally into one [B, 3, H, N·W] image before
+        # MS-SSIM, as the reference does (lightning/loss.py:23,44)
+        x = img.permute(0, 4, 2, 1, 3).reshape(B, 3, H, N * W)
+        y = tar.permute(0, 4, 2, 1, 3).reshape(B, 3, H, N * W)
+        ssim_val = ms_ssim(x, y, weights=weights)
+        stats[f"ssim{prex}"] = ssim_val
+        loss = loss + 0.5 * (1.0 - ssim_val)
+
+        if f"rend_dist{prex}" in output and prex != "_fine":
+            distortion = torch.mean(output[f"rend_dist{prex}"].float())
+            stats[f"distortion{prex}"] = distortion
+            loss = loss + gate * distortion * 1000.0
+
+            rend_normal = output[f"rend_normal{prex}"].float()
+            depth_normal = output[f"depth_normal{prex}"].float()
+            acc = output[f"acc_map{prex}"].float().detach()
+            normal_err = torch.mean(
+                (1.0 - torch.sum(rend_normal * depth_normal, dim=-1)) * acc)
+            stats[f"normal{prex}"] = normal_err
+            loss = loss + gate * normal_err * 0.2
+
+    return loss, stats

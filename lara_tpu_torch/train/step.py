@@ -1,13 +1,57 @@
-"""Serving entry point, the counterpart of
-`lara_tpu/train/step.py:make_forward` (evaluation.py:61 equivalent)."""
+"""Train, eval and serving steps, the counterpart of `lara_tpu/train/step.py`
+(lightning/system.py:24-45 and evaluation.py:61).
+
+`with_fine` selects the coarse-only or the fine step, as the JAX training loop
+switches at `train.start_fine`. The loss gates read the optimizer-step
+count `state.step // grad_accum` (the reference's global_step), as
+`lara_tpu/train/step.py:46` does. One process, one device: data
+parallelism is not ported yet.
+"""
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Tuple
 
 import torch
 
 from lara_tpu_torch.models.lara import LaRaNet
+from lara_tpu_torch.train.loss import compute_losses
+from lara_tpu_torch.train.state import TrainState
+
+
+def make_train_step(net: LaRaNet, state: TrainState, with_fine: bool,
+                    grad_accum: int = 1) -> Callable[[Dict], Dict]:
+    """One micro-step per call: forward at the train raster budgets, losses,
+    backward, then `state.apply_gradients()` (which updates the parameters
+    on every `grad_accum`-th call). Returns the detached stats with "loss"."""
+
+    def step(batch: Dict) -> Dict:
+        net.train()
+        out = net(batch, with_fine=with_fine, train=True)
+        loss, stats = compute_losses(batch, out, state.step // grad_accum)
+        loss.backward()
+        state.apply_gradients()
+        stats = {k: v.detach() for k, v in stats.items()}
+        stats["loss"] = loss.detach()
+        return stats
+
+    return step
+
+
+def make_eval_step(net: LaRaNet, with_fine: bool = True) -> Callable:
+    """(batch, step) → (outputs, stats): the forward at the eval budgets and
+    the losses at optimizer step `step`, without gradients."""
+
+    @torch.no_grad()
+    def step(batch: Dict, step: int) -> Tuple[Dict, Dict]:
+        net.eval()
+        out = net(batch, with_fine=with_fine, train=False)
+        loss, stats = compute_losses(batch, out, step)
+        stats = dict(stats)
+        stats["loss"] = loss
+        return out, stats
+
+    return step
 
 
 def make_forward(net: LaRaNet, with_fine: bool = True,

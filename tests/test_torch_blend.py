@@ -10,10 +10,17 @@ Tolerances (those of tests/test_pallas.py): atol 2e-4 on rgb, alpha,
 normal and distortion; 1e-3 on the depth sum and the median depth. The
 median may flip on a pixel whose transmittance sits at 0.5, so it is
 compared on all but at most 0.1% of the pixels.
+
+The backward: autograd of the plain version against `jax.vjp` of
+`blend_tiles_pallas` with `pallas_stash_carries=True` (its replay-free
+backward kernel, interpret mode), with a random cotangent on all 10
+channels, at the gradient bar of tests/test_pallas.py: atol 5e-4, rtol
+1e-3. The median's cotangent is ignored by both (its gradient is 0).
 """
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,6 +36,17 @@ from tests.test_rasterizer import front_camera
 
 ATOL = {0: 2e-4, 1: 2e-4, 2: 2e-4, 3: 2e-4, 4: 1e-3, 6: 2e-4, 7: 2e-4, 8: 2e-4, 9: 2e-4}
 MEDIAN_ATOL, MEDIAN_MAX_FLIPS = 1e-3, 1e-3
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The suite runs several pytest workers on the CPU at once; torch's
+    intra-op thread pool in each of them would oversubscribe the cores, and
+    these small ops then run many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture
@@ -158,14 +176,14 @@ def test_blend_tiles_rejects_bad_inputs():
         cuda_blend.blend_tiles(entries.to("meta"), counts.to("meta"),
                                scalars.to("meta"), cfg)
     # the CPU path never counts as a kernel launch
-    before = cuda_blend.blend_tiles.launches
-    cuda_blend.blend_tiles(entries, counts, scalars, cfg)
-    assert cuda_blend.blend_tiles.launches == before
+    before = dict(cuda_blend.LAUNCHES)
+    cuda_blend.blend_tiles(entries.requires_grad_(True), counts, scalars, cfg)
+    assert cuda_blend.LAUNCHES == before
 
 
 def test_failed_build_raises(monkeypatch, tmp_path):
     """Without nvcc the build raises; nothing falls back."""
-    monkeypatch.setattr(cuda_blend, "_lib", None)
+    monkeypatch.setattr(cuda_blend, "_libs", {})
     monkeypatch.setattr(cuda_blend, "_BUILD_DIR", tmp_path)
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
@@ -183,9 +201,114 @@ def test_kernel_matches_reference_on_cuda():
     entries, counts, scalars = make_windows(scene_np(5, 400), cfg)
     tcfg = torch_cfg(cfg)
     args = [torch.from_numpy(a).cuda() for a in (entries, counts, scalars)]
-    before = cuda_blend.blend_tiles.launches
+    before = cuda_blend.LAUNCHES["blend_fwd"]
     got = cuda_blend.blend_tiles(*args, tcfg)
     torch.cuda.synchronize()
-    assert cuda_blend.blend_tiles.launches == before + 1
+    assert cuda_blend.LAUNCHES["blend_fwd"] == before + 1
     want = cuda_blend.blend_tiles_reference(*args, tcfg)
     assert_accumulators_close(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_backward_kernel_matches_reference_on_cuda():
+    """The stash forward + backward kernels against autograd of the plain
+    version on the card (the gradient bar); skipped without a GPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    cfg = jax_cfg(tile_budget=128, pallas_chunk=64, dup=3)
+    entries, counts, scalars = make_windows(scene_np(5, 400), cfg)
+    tcfg = torch_cfg(cfg)
+    cot = torch.from_numpy(cotangent(entries.shape[0], 3)).cuda()
+    grads = []
+    for fn in (cuda_blend.blend_tiles, cuda_blend.blend_tiles_reference):
+        e, c, sc = (torch.from_numpy(a).cuda() for a in (entries, counts, scalars))
+        e.requires_grad_(True)
+        (g,) = torch.autograd.grad(fn(e, c, sc, tcfg), e, cot)
+        grads.append(g.cpu().numpy())
+    np.testing.assert_allclose(grads[0], grads[1], atol=5e-4, rtol=1e-3)
+
+
+def cotangent(num_tiles, seed):
+    """A random cotangent of the accumulators [T, 10, 256], numpy-made."""
+    rng = np.random.default_rng(seed)
+    return rng.normal(size=(num_tiles, 10, 256)).astype(np.float32)
+
+
+def grads_both(pb, entries, counts, scalars, cfg, cot):
+    """(port's plain autograd gradient, jax.vjp of the Pallas blend)."""
+    _, vjp = jax.vjp(lambda e: pb.blend_tiles_pallas(
+        e, jnp.asarray(counts), jnp.asarray(scalars), cfg), jnp.asarray(entries))
+    (want,) = vjp(jnp.asarray(cot))
+    e = torch.from_numpy(entries).requires_grad_(True)
+    out = cuda_blend.blend_tiles(e, torch.from_numpy(counts), torch.from_numpy(scalars),
+                                 torch_cfg(cfg))
+    (got,) = torch.autograd.grad(out, e, torch.from_numpy(cot))
+    return got.numpy(), np.asarray(want)
+
+
+def backward_case(case):
+    if case == "opaque":
+        cfg = jax_cfg(tile_budget=64, pallas_chunk=32)
+        return cfg, make_windows(opaque_stack_np(), cfg)
+    cfg = jax_cfg(tile_budget=64, pallas_chunk=32, dup=3)
+    entries, counts, scalars = make_windows(scene_np(9, 400), cfg)
+    counts = counts.copy()
+    counts[::3] = 0
+    counts[1::3] += 1000
+    return cfg, (entries, counts, scalars)
+
+
+@pytest.mark.parametrize("budget,chunk", [(64, 32), (64, 64), (128, 32), (128, 64)])
+def test_reference_backward_matches_pallas_random_scene(pallas_interpret, budget, chunk):
+    cfg = jax_cfg(tile_budget=budget, pallas_chunk=chunk, dup=3)
+    assert cfg.pallas_stash_carries
+    entries, counts, scalars = make_windows(scene_np(5, 800), cfg)
+    got, want = grads_both(pallas_interpret, entries, counts, scalars, cfg,
+                           cotangent(cfg.num_tiles, budget + chunk))
+    assert np.abs(want).max() > 1.0
+    np.testing.assert_allclose(got, want, atol=5e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("case", ["opaque", "empty_and_over_budget"])
+def test_reference_backward_matches_pallas_edge_cases(pallas_interpret, case):
+    cfg, (entries, counts, scalars) = backward_case(case)
+    got, want = grads_both(pallas_interpret, entries, counts, scalars, cfg,
+                           cotangent(cfg.num_tiles, 1))
+    np.testing.assert_allclose(got, want, atol=5e-4, rtol=1e-3)
+    rows = np.arange(cfg.tile_budget)[None, :] < np.minimum(counts, cfg.tile_budget)[:, None]
+    assert np.all(got[~rows] == 0.0)
+    assert np.abs(got[rows]).max() > 0.0
+
+
+def test_reference_median_has_no_gradient():
+    """A cotangent on the median channel alone gives a zero gradient (the
+    TPU kernel defines it so, pallas_blend.py:487-490)."""
+    cfg = jax_cfg(tile_budget=64, pallas_chunk=32, dup=3)
+    entries, counts, scalars = make_windows(scene_np(5, 800), cfg)
+    e = torch.from_numpy(entries).requires_grad_(True)
+    out = cuda_blend.blend_tiles(e, torch.from_numpy(counts), torch.from_numpy(scalars),
+                                 torch_cfg(cfg))
+    assert out[:, 5].abs().max() > 0.5
+    cot = torch.zeros_like(out)
+    cot[:, 5] = 1.0
+    (g,) = torch.autograd.grad(out, e, cot)
+    assert torch.count_nonzero(g) == 0
+
+
+def test_reference_stash_matches_pallas(pallas_interpret):
+    """What the plain version reports as the stash forward's outputs
+    (carry-ins of the processed chunks, processed-chunk counts) against
+    `_run_fwd(stash=True)`."""
+    cfg, (entries, counts, scalars) = backward_case("empty_and_over_budget")
+    acc, carries = pallas_interpret._run_fwd(
+        jnp.asarray(entries), jnp.asarray(counts), jnp.asarray(scalars), cfg, stash=True)
+    ndone = np.asarray(acc[:, 10, 0]).astype(np.int32)
+    _, got, got_ndone = cuda_blend.blend_tiles_reference(
+        torch.from_numpy(entries), torch.from_numpy(counts), torch.from_numpy(scalars),
+        torch_cfg(cfg), return_stash=True)
+    np.testing.assert_array_equal(got_ndone.numpy(), ndone)
+    assert ndone.max() == 2 and ndone.min() == 0
+    carries = np.asarray(carries)
+    for t_ in range(cfg.num_tiles):
+        np.testing.assert_allclose(got.numpy()[t_, :ndone[t_]], carries[t_, :ndone[t_]],
+                                   atol=2e-4)

@@ -39,3 +39,23 @@ def test_unported_render_modes_raise(override):
     name, value = override.split(".")[1].split("=")
     with pytest.raises(ValueError, match=name):
         tcfg.RenderConfig(**{name: value})
+
+
+@pytest.mark.parametrize("override", ["render.pallas_stash_carries=false",
+                                      "model.flash_attn=true",
+                                      "model.remat_policy=dots"])
+def test_unported_training_knobs_raise(override):
+    """Each of these selects a kernel or mode the port does not have yet
+    (the replay backward, flash attention, the dots remat policy): it
+    raises instead of running another path."""
+    with pytest.raises(ValueError):
+        tcfg.load_config("configs/base.yaml", overrides=[override])
+    section, assign = override.split(".")
+    name, value = assign.split("=")
+    value = {"true": True, "false": False}.get(value, value)
+    cls = tcfg.RenderConfig if section == "render" else tcfg.ModelConfig
+    with pytest.raises(ValueError, match=name):
+        cls(**{name: value})
+    # the JAX package accepts them
+    jcls = jcfg.RenderConfig if section == "render" else jcfg.ModelConfig
+    jcls(**{name: value})

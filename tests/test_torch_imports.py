@@ -1,5 +1,5 @@
-"""Import hygiene of the port: every module of `lara_tpu_torch` imports in a
-fresh interpreter without pulling in JAX, flax, the JAX package, PyYAML,
+"""Import hygiene of the port: every module of `lara_tpu_torch`, and
+`chip_smoke.py`, imports in a fresh interpreter without pulling in JAX, flax, the JAX package, PyYAML,
 h5py or OpenCV (the GPU machine has none of the last three)."""
 
 import json
@@ -17,7 +17,7 @@ import importlib, json, pkgutil, sys
 import lara_tpu_torch
 names = ["lara_tpu_torch"] + [m.name for m in pkgutil.walk_packages(
     lara_tpu_torch.__path__, "lara_tpu_torch.")]
-for name in names:
+for name in names + ["chip_smoke"]:
     importlib.import_module(name)
 print(json.dumps({"modules": names,
                   "loaded": sorted({m.split(".")[0] for m in sys.modules})}))
@@ -34,7 +34,10 @@ def probe():
 
 def test_every_module_imports(probe):
     expected = {"lara_tpu_torch.models.lara", "lara_tpu_torch.ops.rasterizer.cuda_blend",
-                "lara_tpu_torch.train.step", "lara_tpu_torch.config"}
+                "lara_tpu_torch.train.step", "lara_tpu_torch.config",
+                "lara_tpu_torch.train.loss", "lara_tpu_torch.train.state",
+                "lara_tpu_torch.ops.msssim", "lara_tpu_torch.models.remat",
+                "lara_tpu_torch.tools.profile_train"}
     assert expected <= set(probe["modules"])
 
 

@@ -120,9 +120,9 @@ def test_serving_slice_matches_jax(nets, pallas_interpret):  # noqa: F811
     batch = synthetic_batch(B=1)
     want = jnet.apply(params, batch, with_fine=True, train=False, return_buffer=True)
     fwd = make_forward(tnet, with_fine=True, return_buffer=True)
-    before = cuda_blend.blend_tiles.launches
+    before = dict(cuda_blend.LAUNCHES)
     got = fwd({k: torch.from_numpy(np.array(v)) for k, v in batch.items()})
-    assert cuda_blend.blend_tiles.launches == before      # CPU: plain version
+    assert cuda_blend.LAUNCHES == before                  # CPU: plain version
 
     # the fine selection, as sets
     sel_want = _np(want["render_pkg"]["fine"][2][..., 0]) > -1e3

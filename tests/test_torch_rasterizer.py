@@ -17,6 +17,7 @@ from lara_tpu.utils import camera as jcam
 from lara_tpu.utils.quat import quat_to_rotmat as jax_quat_to_rotmat
 from lara_tpu.utils.sh import eval_sh_color as jax_eval_sh_color
 from lara_tpu.utils.sh import rsh_cart_3 as jax_rsh_cart_3
+from lara_tpu_torch.ops.gather import window_gather
 from lara_tpu_torch.ops.rasterizer import rasterize_and_bin, rasterize_rebind
 from lara_tpu_torch.ops.rasterizer.preprocess import preprocess_surfels
 from lara_tpu_torch.ops.rasterizer.tiled import bin_view
@@ -139,3 +140,19 @@ def test_backend_names():
     assert resolve_backend("auto") == resolve_backend("pallas") == "cuda"
     with pytest.raises(ValueError):
         resolve_backend("tiled")
+
+
+def test_window_gather_invalid_slots_send_no_gradient():
+    """Slots past a tile's count hold the sentinel index; the gather's
+    backward sums only valid slots (`_window_gather_lazy` in the JAX
+    package), so a gradient on a sentinel slot reaches no packed row."""
+    rng = np.random.default_rng(0)
+    packed = torch.from_numpy(rng.normal(size=(6, 13)).astype(np.float32)).requires_grad_(True)
+    win = torch.tensor([[0, 3, 5, 2**19 - 1], [4, 2**19 - 1, 2**19 - 1, 2**19 - 1]])
+    valid = torch.tensor([[True, True, True, False], [True, False, False, False]])
+    rows = window_gather(packed, win, valid)
+    np.testing.assert_array_equal(rows[valid].detach().numpy(),
+                                  packed.detach().numpy()[win[valid].numpy()])
+    assert not rows[~valid].any()
+    (g,) = torch.autograd.grad(rows, packed, torch.ones_like(rows))
+    np.testing.assert_array_equal(g.sum(-1).numpy(), [13.0, 0.0, 0.0, 13.0, 13.0, 13.0])

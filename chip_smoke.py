@@ -7,8 +7,8 @@ Phases, each of which raises on failure (the script then exits non-zero);
 each prints its seconds:
   1. device: require CUDA, print `nvidia-smi` name and power limit; TF32
      off in matmuls and cuDNN convolutions;
-  2. build both blend kernels (`lara_tpu_torch/csrc/blend_{fwd,bwd}.cu`,
-     one nvcc each, started together);
+  2. build every kernel of `lara_tpu_torch/csrc/` (one nvcc per source,
+     started together) and print each kernel's registers and spills;
   3. forward kernel vs plain version (`blend_tiles_reference`) on a random
      524,288-surfel scene at 512², binned at the train (budget 128) and eval
      (budget 512) raster configs, plus opaque, empty-tile and over-budget
@@ -18,29 +18,55 @@ each prints its seconds:
      cotangent, against autograd of the plain version: processed-chunk
      counts equal, stashed carries, per-column gradient error, the stash
      forward's accumulators bit for bit those of the plain forward kernel;
-     median ms of both kernels and of their plain versions;
-  5. serving: two flagship-width requests (B=1, 4+4 views at 512², seeded
+     and `blend_bwd_replay` on the same inputs: replayed carries, ndone and
+     gradients bit for bit those of the stash path; median ms of the
+     kernels and of their plain versions;
+  5. flash attention at the ViT's shapes [4, 1025, 12, 64] (serving) and
+     [12, 1025, 12, 64] (train) in bf16, a ragged L=200 case with a
+     kv_mask, and f32 at head_dim 12 (the reduced check's ViT): output and
+     dq, dk, dv against autograd of the plain version; median ms of the
+     kernels, the plain version and `F.scaled_dot_product_attention` (timed
+     only: the port never calls it);
+  6. serving: two flagship-width requests (B=1, 4+4 views at 512², seeded
      random weights) through `make_forward`, each checked for shapes,
-     finite values, coverage and exactly 16 forward launches; then one
-     request with the blend swapped for the plain version;
-  6. training, reduced config (tests/test_model.py:tiny_config at 128², f32):
+     finite values, coverage and exactly 16 forward launches; one request
+     with the blend swapped for the plain version; then two requests with
+     `flash_attn=True` on the same weights (12 flash launches each),
+     `image_fine` against the default path's;
+  7. training, reduced config (tests/test_model.py:tiny_config at 128², f32):
      one fine micro-step through the kernels and one through the plain
-     blend give the same loss and gradients; 10 optimizer steps on one
-     batch lower the loss;
-  7. training, flagship `Config()` at B=3 (4+4 views at 512², bf16
+     versions give the same loss and gradients, by default and with
+     `flash_attn=True` and `pallas_stash_carries=False`; 10 optimizer steps
+     on one batch lower the loss;
+  8. training, flagship `Config()` at B=3 (4+4 views at 512², bf16
      autocast): one coarse micro-step and four fine micro-steps (two AdamW
-     updates) from micro-step 2002, each with exactly 24 or 48 stash-forward
-     and backward launches, finite stats, a gradient in every stage, and
-     parameters changed only on the second micro-step of a pair; then one
-     `make_eval_step` call;
-  8. a JSON line describing the kernels, the `nvidia-smi` line, and as the
-     last line `{"ok": true, "device": {...}}`.
+     updates) from micro-step 2002, each with exactly its kernel launches,
+     finite stats, a gradient in every stage, and parameters changed only
+     on the second micro-step of a pair; then one `make_eval_step` call;
+     the same again with `flash_attn=True` and `pallas_stash_carries=False`
+     (no stash, the replay backward, the flash kernels), and one fine
+     micro-step with `remat_policy="dots"` too; seconds and peak memory of
+     each beside the default's;
+  9. a JSON line describing the kernels (with each one's bound at the
+     path's shapes), the `nvidia-smi` line, and as the last line
+     `{"ok": true, "device": {...}}`.
+
+Bounds: the larger of the bytes the function must move over 3.35 TB/s and
+its operations over the peak for their type (989 TFLOP/s bf16 on the
+tensor cores; 67 TFLOP/s f32 outside them for the blend), at the H100 SXM's
+published rates. The blend's work depends on the data, so it is counted on
+this run's windows: entry-pixel pairs of processed chunks
+Σ_t min(n_t, ndone_t·C)·256, times the operations per pair in the kernel
+sources (forward ~40 flops and one expf; the backward twice that plus ~60;
+the replay once more the forward's).
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -48,9 +74,12 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from lara_tpu_torch.config import Config, ModelConfig, RenderConfig, TrainConfig
 from lara_tpu_torch.models import LaRaNet
+from lara_tpu_torch.models import vit
+from lara_tpu_torch.ops import _build, flash
 from lara_tpu_torch.ops.gather import window_gather
 from lara_tpu_torch.ops.rasterizer import cuda_blend
 from lara_tpu_torch.ops.rasterizer.preprocess import preprocess_surfels
@@ -83,6 +112,22 @@ COLUMNS = ["cx", "cy", "cz", "au0", "au1", "au2", "bv0", "bv1", "bv2",
 TRAIN_GRAD_RTOL = 5e-3
 STAGES = ("img_encoder.", "vol_decoder.", "decoder.mlp_coarse.", "decoder.mlp_fine.")
 CHANNELS = ["r", "g", "b", "alpha", "depth_sum", "median", "nx", "ny", "nz", "dist"]
+# flash attention in bf16 against the plain version from the same bf16
+# inputs (f32 logits, softmax and PV): the kernel rounds P to bf16 before
+# P V (and dS before its products), 2^-9 relative per element, and writes
+# bf16 (another 2^-9): relative L2 error within 1e-2 and every element
+# within 2^-5 of the tensor's largest magnitude; in f32 within 1e-5 of it
+FLASH_BF16_REL_L2, FLASH_BF16_MAX, FLASH_F32_MAX = 1e-2, 2.0 ** -5, 1e-5
+# serving image_fine with flash vs the default attention on the same
+# weights: both bf16, the default's logits are a bf16 product, the flash
+# kernel's f32; the difference passes through 12 ViT layers, the volume
+# transformer and the decoders, and flips near-tied surfels in and out of
+# the fine stage's top-k selection, which changes a few pixels outright:
+# the mean within 5e-3 and all but 0.1% of the values within 0.1
+SLICE_FLASH_MEAN, SLICE_FLASH_Q999 = 5e-3, 0.1
+HBM_BYTES_PER_S, BF16_TC_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
+# operations per processed entry-pixel in the blend kernels' source notes
+BLEND_OPS = {"fwd": 41, "bwd": 142, "replay": 183}
 
 
 def nvidia_smi_line() -> str:
@@ -184,6 +229,47 @@ def windows(scene, cfg, cam):
     return entries, binned.counts, scalars
 
 
+def launches() -> dict:
+    return {**cuda_blend.LAUNCHES, **flash.LAUNCHES}
+
+
+def reset_launches():
+    cuda_blend.reset_launches()
+    flash.reset_launches()
+
+
+def bound(nbytes: float, ops: float, peak_ops: float) -> tuple:
+    """(bound_ms, bound_by): the larger of bytes / 3.35 TB/s and
+    ops / peak_ops."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak_ops
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def blend_pairs(counts, ndone, cfg) -> int:
+    """Entry-pixel pairs of the processed chunks: Σ_t min(n_t, ndone_t·C)·P."""
+    n = torch.clamp(counts, max=cfg.tile_budget)
+    return int(torch.minimum(n, ndone * cfg.pallas_chunk).sum()) * cfg.tile ** 2
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def kernel_name(mangled: str) -> str:
+    """`blend_bwd_kernel<1>` from the mangled name of a kernel in an
+    anonymous namespace, as ptxas prints it."""
+    m = re.match(r"_ZN(\d+)", mangled)
+    if not m:
+        return mangled
+    rest = mangled[m.end() + int(m.group(1)):]
+    m = re.match(r"(\d+)", rest)
+    if not m:
+        return mangled
+    name = rest[m.end():m.end() + int(m.group(1))]
+    t = re.match(r"IL\w(\d+)E", rest[m.end() + int(m.group(1)):])
+    return f"{name}<{t.group(1)}>" if t else name
+
+
 def median_ms(fn, reps):
     times = []
     for _ in range(reps):
@@ -220,8 +306,14 @@ def compare_case(name, entries, counts, scalars, cfg, timed=False):
         res["ms"] = median_ms(lambda: cuda_blend.blend_tiles(entries, counts, scalars, cfg), 30)
         res["plain_ms"] = median_ms(
             lambda: cuda_blend.blend_tiles_reference(entries, counts, scalars, cfg), 5)
+        ndone = cuda_blend.blend_fwd(entries, counts, scalars, cfg, stash=True)[2]
+        pairs = blend_pairs(counts, ndone, cfg)
+        res["bound_ms"], res["bound_by"] = bound(
+            nbytes(entries, counts, scalars, got), BLEND_OPS["fwd"] * pairs, F32_FLOPS)
         print(f"[kernel] {name}: median ms per call kernel {res['ms']:.4f} "
-              f"plain {res['plain_ms']:.4f}")
+              f"plain {res['plain_ms']:.4f}; {pairs} processed entry-pixels, bound "
+              f"{res['bound_ms']:.4f} ms ({res['bound_by']}), kernel at "
+              f"{res['bound_ms'] / res['ms']:.3f} of it")
     return res
 
 
@@ -300,9 +392,26 @@ def backward_case(name, entries, counts, scalars, cfg, seed, timed=False):
     fwd_err = (out_s - want.detach()).abs().amax(dim=(0, 2))
     res = {"max_abs_err": max(col_err), "flips": flips,
            "fwd_max_abs_err": max(e_ for c, e_ in enumerate(fwd_err.tolist()) if c != 5)}
+
+    # the replay backward rebuilds the stash path's carries and gradients
+    # bit for bit (slots 0..ndone are the written ones)
+    grad_r, carries_r, ndone_r = cuda_blend.blend_bwd_replay(
+        entries, counts, scalars, cot, cfg, return_carries=True)
+    torch.cuda.synchronize()
+    used4 = used[..., None]
+    same = {"ndone": torch.equal(ndone_r, ndone),
+            "carries": torch.equal(torch.where(used4, carries_r, 0.0),
+                                   torch.where(used4, carries, 0.0)),
+            "gradients": torch.equal(grad_r, grad)}
+    print(f"[replay] {name}: replay vs stash bit for bit: {same}")
+    if not all(same.values()):
+        raise AssertionError(f"{name}: the replay backward differs from the stash path: {same}")
     if timed:
+        pairs = blend_pairs(counts, ndone, cfg)
         res["bwd_ms"] = median_ms(lambda: cuda_blend.blend_bwd(
             entries, counts, scalars, carries, ndone, cot, cfg), 30)
+        res["replay_ms"] = median_ms(lambda: cuda_blend.blend_bwd_replay(
+            entries, counts, scalars, cot, cfg), 30)
         res["bwd_plain_ms"] = median_ms(
             lambda: torch.autograd.grad(want, e, cot, retain_graph=True), 5)
         res["fwd_stash_ms"] = median_ms(lambda: cuda_blend.blend_fwd(
@@ -310,15 +419,25 @@ def backward_case(name, entries, counts, scalars, cfg, seed, timed=False):
         with torch.enable_grad():
             res["fwd_stash_plain_ms"] = median_ms(lambda: cuda_blend.blend_tiles_reference(
                 e, counts, scalars, cfg), 5)
+        res["bwd_bound"] = bound(nbytes(entries, counts, scalars, carries, ndone, cot, grad),
+                                 BLEND_OPS["bwd"] * pairs, F32_FLOPS)
+        res["replay_bound"] = bound(nbytes(entries, counts, scalars, cot, grad),
+                                    BLEND_OPS["replay"] * pairs, F32_FLOPS)
+        res["fwd_stash_bound"] = bound(nbytes(entries, counts, scalars, out_s, carries, ndone),
+                                       BLEND_OPS["fwd"] * pairs, F32_FLOPS)
         print(f"[backward] {name}: median ms per call: backward kernel {res['bwd_ms']:.4f} "
+              f"replay backward kernel {res['replay_ms']:.4f} "
               f"plain autograd backward {res['bwd_plain_ms']:.4f}; stash forward kernel "
               f"{res['fwd_stash_ms']:.4f} plain forward under autograd "
-              f"{res['fwd_stash_plain_ms']:.4f}")
+              f"{res['fwd_stash_plain_ms']:.4f}; {pairs} processed entry-pixels, bounds "
+              f"(ms) backward {res['bwd_bound']}, replay {res['replay_bound']}, "
+              f"stash forward {res['fwd_stash_bound']}")
     return res
 
 
 def backward_phase(dev) -> dict:
-    """Both kernels of a training render at the train raster config."""
+    """The kernels of a training render at the train raster config: the
+    stash forward, the backward from the stash, and the replay backward."""
     cam = camera(dev)
     cfg = train_raster_cfg()
     entries, counts, scalars = windows(random_scene(N_SURFELS, 0, dev), cfg, cam)
@@ -328,6 +447,82 @@ def backward_phase(dev) -> dict:
     corner = random_scene(4096, 1, dev, corner=True)
     results["empty_tiles"] = backward_case("empty_tiles", *windows(corner, cfg, cam), cfg, 4)
     return results
+
+
+def flash_case(name, seed, b, l, h, hd, dtype, dev, masked=False, timed=False):
+    """The flash kernels against autograd of the plain version on seeded
+    random q, k, v and cotangent [b, l, h, hd]."""
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn((b, l, h, hd), generator=gen).to(dev, dtype) for _ in range(4))
+    mask = None
+    if masked:
+        mask = (torch.rand((b, l), generator=gen) > 0.3).to(dev)
+        mask[:, 0] = True
+    qkv = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    got = [flash.flash_mha(*qkv, kv_mask=mask)]
+    got += torch.autograd.grad(got[0], qkv, do)
+    torch.cuda.synchronize()
+    ref = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    want = [flash.flash_mha_reference(*ref, kv_mask=mask)]
+    want += torch.autograd.grad(want[0], ref, do, retain_graph=timed)
+    errs = {}
+    for what, g, w in zip(("o", "dq", "dk", "dv"), got, want):
+        g, w = g.float(), w.float()
+        scale = w.abs().max().item()
+        err = (g - w).abs().max().item()
+        rel = ((g - w).norm() / w.norm()).item()
+        errs[what] = err
+        if dtype == torch.bfloat16:
+            ok = rel <= FLASH_BF16_REL_L2 and err <= FLASH_BF16_MAX * scale
+        else:
+            ok = err <= FLASH_F32_MAX * max(1.0, scale)
+        print(f"[flash] {name} {what}: max |kernel - plain| {err:.3e} (max |plain| "
+              f"{scale:.3e}), relative L2 {rel:.3e}")
+        if not ok:
+            raise AssertionError(f"flash {name}: {what} differs from the plain version")
+    res = {"max_abs_err": max(errs.values())}
+    if timed:
+        scale = hd ** -0.5
+        o, lse = flash.flash_fwd(q, k, v, mask, scale)
+        res["fwd_ms"] = median_ms(lambda: flash.flash_fwd(q, k, v, mask, scale), 20)
+        res["bwd_ms"] = median_ms(lambda: flash.flash_bwd(q, k, v, mask, o, lse, do, scale), 20)
+        with torch.no_grad():
+            res["fwd_plain_ms"] = median_ms(
+                lambda: flash.flash_mha_reference(q, k, v, kv_mask=mask), 5)
+        res["bwd_plain_ms"] = median_ms(
+            lambda: torch.autograd.grad(want[0], ref, do, retain_graph=True), 5)
+        # SDPA at the same shape, in its [b, h, l, hd] layout: the yardstick
+        sq, sk, sv = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+        with torch.no_grad():
+            res["fwd_library_ms"] = median_ms(
+                lambda: F.scaled_dot_product_attention(sq, sk, sv), 20)
+        so = F.scaled_dot_product_attention(sq, sk, sv)
+        sdo = do.transpose(1, 2)
+        res["bwd_library_ms"] = median_ms(
+            lambda: torch.autograd.grad(so, (sq, sk, sv), sdo, retain_graph=True), 20)
+        fwd_flops = 4.0 * b * h * l * l * hd
+        io = nbytes(q, k, v, o)
+        res["fwd_bound"] = bound(io + nbytes(lse), fwd_flops, BF16_TC_FLOPS)
+        res["bwd_bound"] = bound(io + nbytes(do, lse) + 3 * nbytes(q), 2.5 * fwd_flops,
+                                 BF16_TC_FLOPS)
+        for what in ("fwd", "bwd"):
+            print(f"[flash] {name} {what}: median ms kernel {res[what + '_ms']:.4f} plain "
+                  f"{res[what + '_plain_ms']:.4f} SDPA {res[what + '_library_ms']:.4f}; bound "
+                  f"{res[what + '_bound'][0]:.4f} ms ({res[what + '_bound'][1]}), kernel at "
+                  f"{res[what + '_bound'][0] / res[what + '_ms']:.3f} of it")
+    return res
+
+
+def flash_phase(dev) -> dict:
+    """The flash kernels at the ViT's shapes (12 heads of 64, 1025 tokens),
+    a ragged masked case, and the f32 kernels at head_dim 12."""
+    bf16 = torch.bfloat16
+    return {"train": flash_case("train", 0, 12, 1025, 12, 64, bf16, dev, timed=True),
+            "serve": flash_case("serve", 1, 4, 1025, 12, 64, bf16, dev),
+            "ragged_mask": flash_case("ragged_mask", 2, 2, 200, 12, 64, bf16, dev, masked=True),
+            "f32_hd12": flash_case("f32_hd12", 3, 2, 65, 4, 12, torch.float32, dev),
+            "f32_hd12_mask": flash_case("f32_hd12_mask", 4, 2, 200, 3, 12, torch.float32, dev,
+                                        masked=True)}
 
 
 def check_outputs(out: dict, n_views: int):
@@ -345,49 +540,58 @@ def check_outputs(out: dict, n_views: int):
             raise AssertionError(f"{k} is zero everywhere")
 
 
-def slice_phase(dev) -> dict:
-    """The serving path: flagship requests through `make_forward`."""
-    cfg = Config()
-    n_views = cfg.n_views
-    t0 = time.perf_counter()
-    net = LaRaNet(cfg, dtype=torch.bfloat16, device=dev,
-                  generator=torch.Generator().manual_seed(0))
+def serve_requests(net, batches, want: dict, tag: str):
+    """Requests through `make_forward`, each with exactly the launches in
+    `want`; returns (image_fine of the first, seconds per request)."""
+    n_views = net.cfg.n_views
     fwd = make_forward(net, with_fine=True)
-    batches = [make_batch(seed, n_views, dev) for seed in range(2)]
-    torch.cuda.synchronize()
-    print(f"[slice] flagship Config(): {sum(p.numel() for p in net.parameters())} "
-          f"parameters, set-up {time.perf_counter() - t0:.2f} s")
-
-    torch.cuda.reset_peak_memory_stats(dev)
-    cuda_blend.reset_launches()
     seconds, first = [], None
     for i, batch in enumerate(batches):
-        before = dict(cuda_blend.LAUNCHES)
+        before = launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fwd(batch)
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
-        launched = {k: v - before[k] for k, v in cuda_blend.LAUNCHES.items()}
+        launched = {k: v - before[k] for k, v in launches().items()}
         check_outputs(out, n_views)
-        if launched != {"blend_fwd": 4 * n_views, "blend_fwd_stash": 0, "blend_bwd": 0}:
-            raise AssertionError(f"request {i}: kernel launches {launched}, expected "
-                                 f"{4 * n_views} of blend_fwd and no other")
-        print(f"[slice] request {i}: {seconds[-1]:.4f} s, {launched['blend_fwd']} kernel "
-              f"launches, max acc_map {out['acc_map'].max().item():.4f} "
-              f"mean acc_map_fine {out['acc_map_fine'].mean().item():.4f}")
+        if launched != want:
+            raise AssertionError(f"{tag} request {i}: kernel launches {launched}, expected {want}")
+        print(f"[{tag}] request {i}: {seconds[-1]:.4f} s, launches {launched}, max acc_map "
+              f"{out['acc_map'].max().item():.4f} mean acc_map_fine "
+              f"{out['acc_map_fine'].mean().item():.4f}")
         if first is None:
             first = out["image_fine"].clone()
         del out
-    launches = dict(cuda_blend.LAUNCHES)
+    return first, seconds
+
+
+def slice_phase(dev) -> dict:
+    """The serving path: flagship requests through `make_forward`, with the
+    default attention and then with `flash_attn=True` on the same weights."""
+    cfg = Config()
+    n_views = cfg.n_views
+    t0 = time.perf_counter()
+    net = LaRaNet(cfg, dtype=torch.bfloat16, device=dev,
+                  generator=torch.Generator().manual_seed(0))
+    batches = [make_batch(seed, n_views, dev) for seed in range(2)]
+    torch.cuda.synchronize()
+    print(f"[slice] flagship Config(): {sum(p.numel() for p in net.parameters())} "
+          f"parameters, set-up {time.perf_counter() - t0:.2f} s")
+
+    none = {k: 0 for k in launches()}
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    first, seconds = serve_requests(net, batches, {**none, "blend_fwd": 4 * n_views}, "slice")
+    counts = launches()
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     print(f"[slice] seconds per request: {' '.join(f'{s:.4f}' for s in seconds)}; "
           f"peak device memory {peak_gb:.2f} GB")
 
-    with plain_blend():
+    with plain_kernels():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        plain = fwd(batches[0])
+        plain = make_forward(net, with_fine=True)(batches[0])
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t0
     diff = (plain["image_fine"] - first).abs().max().item()
@@ -395,19 +599,63 @@ def slice_phase(dev) -> dict:
           f"max |image_fine kernel - plain| = {diff:.3e}")
     if not diff <= SLICE_ATOL:
         raise AssertionError(f"slice: kernel and plain blend differ by {diff}")
-    return launches
+    del plain
+
+    # flash attention in the ViT, same weights
+    net.cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, flash_attn=True))
+    for blk in net.img_encoder.model.blocks:
+        blk.attn.use_flash = True
+    reset_launches()
+    first_f, seconds_f = serve_requests(
+        net, batches, {**none, "blend_fwd": 4 * n_views, "flash_fwd": cfg.model.encoder_depth},
+        "slice-flash")
+    counts_flash = launches()
+    diff = (first_f - first).abs().flatten()
+    q99, q999 = torch.quantile(diff, torch.tensor([0.99, 0.999], device=dev)).tolist()
+    print(f"[slice-flash] seconds per request: {' '.join(f'{s:.4f}' for s in seconds_f)} "
+          f"(default attention {' '.join(f'{s:.4f}' for s in seconds)}); |image_fine - the "
+          f"default attention's|: mean {diff.mean().item():.3e}, 99% {q99:.3e}, 99.9% "
+          f"{q999:.3e}, max {diff.max().item():.3e}")
+    if not (diff.mean().item() <= SLICE_FLASH_MEAN and q999 <= SLICE_FLASH_Q999):
+        raise AssertionError("slice: flash attention changes image_fine beyond the bf16 bar")
+    return {"launches": counts, "flash_launches": counts_flash}
 
 
 @contextlib.contextmanager
-def plain_blend():
-    """Swap the kernels' wrapper for the plain version (on the card's
-    tensors) for a comparison run."""
-    kernel = cuda_blend.blend_tiles
+def plain_kernels():
+    """Swap the kernels' wrappers (the blend's and the ViT's flash
+    attention) for their plain versions, on the card's tensors, for a
+    comparison run."""
+    blend, attn = cuda_blend.blend_tiles, vit.flash_mha
     cuda_blend.blend_tiles = cuda_blend.blend_tiles_reference
+    vit.flash_mha = flash.flash_mha_reference
     try:
         yield
     finally:
-        cuda_blend.blend_tiles = kernel
+        cuda_blend.blend_tiles, vit.flash_mha = blend, attn
+
+
+def with_knobs(cfg: Config, **model) -> Config:
+    """cfg with flash attention and the replay backward on, and `model`'s
+    other fields set."""
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, flash_attn=True, **model),
+        render=dataclasses.replace(cfg.render, pallas_stash_carries=False))
+
+
+def want_launches(cfg: Config, renders: int) -> dict:
+    """Kernel launches of one training micro-step with `renders` renders:
+    the blend's by the stash knob, and with flash attention one forward per
+    ViT layer, once more in the remat recompute, and one backward."""
+    want = {k: 0 for k in launches()}
+    if cfg.render.pallas_stash_carries:
+        want.update(blend_fwd_stash=renders, blend_bwd=renders)
+    else:
+        want.update(blend_fwd=renders, blend_bwd_replay=renders)
+    if cfg.model.flash_attn:
+        depth = cfg.model.encoder_depth
+        want.update(flash_fwd=depth * (2 if cfg.model.remat else 1), flash_bwd=depth)
+    return want
 
 
 def reduced_config() -> Config:
@@ -432,32 +680,35 @@ def loss_and_grads(net, batch, step):
     return loss.item(), {n: p.grad.clone() for n, p in net.named_parameters()}
 
 
-def train_reduced_phase(dev) -> dict:
+def train_reduced_phase(dev, knobs: bool) -> dict:
     """(a) One fine micro-step at a reduced config through the kernels and
-    through the plain blend, in f32: the loss and every parameter gradient
-    agree within TRAIN_GRAD_RTOL. Then 10 optimizer steps on one batch:
-    the loss falls."""
-    cfg = reduced_config()
+    through the plain versions, in f32: the loss and every parameter
+    gradient agree within TRAIN_GRAD_RTOL. With `knobs`, flash attention
+    (the f32 kernels, head_dim 12) and the replay backward. Without, then
+    10 optimizer steps on one batch: the loss falls."""
+    cfg = with_knobs(reduced_config()) if knobs else reduced_config()
+    tag = "train-a-knobs" if knobs else "train-a"
     net = LaRaNet(cfg, dtype=torch.float32, device=dev,
                   generator=torch.Generator().manual_seed(1)).train()
     batch = make_batch(7, cfg.n_views, dev, size=128)
-    n_renders = 2 * 2 * cfg.n_views
-    cuda_blend.reset_launches()
+    reset_launches()
     loss_k, grads_k = loss_and_grads(net, batch, 2002)
-    if cuda_blend.LAUNCHES != {"blend_fwd": 0, "blend_fwd_stash": n_renders,
-                               "blend_bwd": n_renders}:
-        raise AssertionError(f"reduced step: launches {cuda_blend.LAUNCHES}")
-    with plain_blend():
+    want = want_launches(cfg, 2 * 2 * cfg.n_views)
+    if launches() != want:
+        raise AssertionError(f"{tag}: launches {launches()}, expected {want}")
+    with plain_kernels():
         loss_p, grads_p = loss_and_grads(net, batch, 2002)
     worst = max(((torch.linalg.vector_norm(grads_k[n] - g)
                   / torch.linalg.vector_norm(g).clamp_min(1e-30)).item(), n)
                 for n, g in grads_p.items())
-    print(f"[train-a] loss kernels {loss_k:.7f} plain {loss_p:.7f}; worst gradient "
-          f"relative L2 difference {worst[0]:.3e} ({worst[1]})")
+    print(f"[{tag}] loss kernels {loss_k:.7f} plain {loss_p:.7f}; worst gradient "
+          f"relative L2 difference {worst[0]:.3e} ({worst[1]}); launches {want}")
     if not abs(loss_k - loss_p) <= 1e-5:
-        raise AssertionError(f"reduced step: loss {loss_k} vs plain {loss_p}")
+        raise AssertionError(f"{tag}: loss {loss_k} vs plain {loss_p}")
     if not worst[0] <= TRAIN_GRAD_RTOL:
-        raise AssertionError(f"reduced step: gradient of {worst[1]} differs by {worst[0]:.3e}")
+        raise AssertionError(f"{tag}: gradient of {worst[1]} differs by {worst[0]:.3e}")
+    if knobs:
+        return {"max_rel_grad_diff": worst[0]}
 
     net.zero_grad(set_to_none=True)
     state = TrainState(net, TrainConfig(lr=1e-3, warmup_iters=1, grad_accum=1),
@@ -486,12 +737,15 @@ def grads_by_stage(net) -> dict:
     return res
 
 
-def train_flagship_phase(dev) -> dict:
+def train_flagship_phase(dev, knobs: bool) -> dict:
     """(b) The flagship Config() at B=3 (4 + 4 views at 512²), bf16 autocast,
     seeded random weights: one coarse micro-step, then four fine
     micro-steps (two AdamW updates) from micro-step 2002, where the loss
-    gates are on and the learning rate is near its peak. (c) One eval step."""
-    cfg = Config()
+    gates are on and the learning rate is near its peak. With `knobs`,
+    flash attention and the replay backward, then (c) one fine micro-step
+    with remat_policy "dots" as well; without, (c) one eval step."""
+    cfg = with_knobs(Config()) if knobs else Config()
+    tag = "train-b-knobs" if knobs else "train-b"
     n_views, scenes = cfg.n_views, cfg.train.batch_size
     net = LaRaNet(cfg, dtype=torch.bfloat16, device=dev,
                   generator=torch.Generator().manual_seed(0))
@@ -501,27 +755,27 @@ def train_flagship_phase(dev) -> dict:
     def params():
         return [p.detach().clone() for p in net.parameters()]
 
-    def micro_step(step_fn, i, want_launches):
-        before = dict(cuda_blend.LAUNCHES)
+    def micro_step(step_fn, i, renders):
+        before = launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         stats = step_fn(batch)
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
-        launched = {k: v - before[k] for k, v in cuda_blend.LAUNCHES.items()}
-        want = {"blend_fwd": 0, "blend_fwd_stash": want_launches, "blend_bwd": want_launches}
+        launched = {k: v - before[k] for k, v in launches().items()}
+        want = want_launches(net.cfg, renders)
         if launched != want:
-            raise AssertionError(f"micro-step {i}: launches {launched}, expected {want}")
+            raise AssertionError(f"{tag} micro-step {i}: launches {launched}, expected {want}")
         vals = {k: v.item() for k, v in stats.items()}
         if not all(np.isfinite(list(vals.values()))):
-            raise AssertionError(f"micro-step {i}: non-finite stats {vals}")
-        print(f"[train-b] micro-step {i}: {sec:.3f} s, loss {vals['loss']:.5f}, "
-              f"launches {launched['blend_fwd_stash']} + {launched['blend_bwd']}, "
+            raise AssertionError(f"{tag} micro-step {i}: non-finite stats {vals}")
+        print(f"[{tag}] micro-step {i}: {sec:.3f} s, loss {vals['loss']:.5f}, "
+              f"launches {{{', '.join(f'{k}: {v}' for k, v in launched.items() if v)}}}, "
               f"peak {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
         return sec, vals
 
     torch.cuda.reset_peak_memory_stats(dev)
-    cuda_blend.reset_launches()
+    reset_launches()
     # coarse-only micro-step (the trainer before train.start_fine)
     state = TrainState(net, cfg.train, max_iters=30000, step=2002)
     p0 = params()
@@ -544,28 +798,76 @@ def train_flagship_phase(dev) -> dict:
         secs.append(sec)
         if i == 0:
             stage_g = grads_by_stage(net)
-            print("[train-b] max |gradient| per stage after micro-step 0: "
+            print(f"[{tag}] max |gradient| per stage after micro-step 0: "
                   + " ".join(f"{k}={v:.3e}" for k, v in stage_g.items()))
         changed.append(not all(torch.equal(a, b) for a, b in zip(before, params())))
     if changed != [False, True, False, True]:
         raise AssertionError(f"parameters changed after fine micro-steps {changed}, "
                              "expected only after the second of each pair")
-    launches = dict(cuda_blend.LAUNCHES)
+    counts = launches()
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    print(f"[train-b] flagship B={scenes}: coarse micro-step {sec_c:.3f} s; fine micro-steps "
+    print(f"[{tag}] flagship B={scenes}: coarse micro-step {sec_c:.3f} s; fine micro-steps "
           + " ".join(f"{s:.3f}" for s in secs) + f" s; optimizer step (2 fine micro-steps) "
           f"{secs[2] + secs[3]:.3f} s; peak device memory {peak_gb:.2f} GB; lr {state.schedule(state.opt_step - 1):.3e}")
+    res = {"launches": counts, "micro_s": secs, "coarse_s": sec_c, "peak_gb": peak_gb}
+
+    if knobs:
+        # (c) one fine micro-step with remat_policy "dots" as well
+        net.cfg = with_knobs(Config(), remat_policy="dots")
+        net.img_encoder.model.remat_policy = net.vol_decoder.remat_policy = "dots"
+        torch.cuda.reset_peak_memory_stats(dev)
+        res["dots_s"], _ = micro_step(step, "dots", 2 * per_pass)
+        res["dots_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        print(f"[train-c-dots] one fine micro-step with remat_policy dots: "
+              f"{res['dots_s']:.3f} s, peak device memory {res['dots_peak_gb']:.2f} GB")
+        return res
 
     # (c) the eval step at the eval budgets, on the first scene
     one = {k: v[:1] for k, v in batch.items()}
-    cuda_blend.reset_launches()
+    reset_launches()
     out, stats = make_eval_step(net)(one, state.opt_step)
     check_outputs(out, n_views)
     vals = {k: v.item() for k, v in stats.items()}
-    if not all(np.isfinite(list(vals.values()))) or cuda_blend.LAUNCHES["blend_fwd"] != 4 * n_views:
-        raise AssertionError(f"eval step: stats {vals}, launches {cuda_blend.LAUNCHES}")
+    if not all(np.isfinite(list(vals.values()))) or launches()["blend_fwd"] != 4 * n_views:
+        raise AssertionError(f"eval step: stats {vals}, launches {launches()}")
     print(f"[train-c] eval step: loss {vals['loss']:.5f} psnr_fine {vals['psnr_fine']:.3f}")
-    return {"launches": launches, "micro_s": secs, "coarse_s": sec_c, "peak_gb": peak_gb}
+    return res
+
+
+def kernel_records(kernel, backward, flash_res, serving, train, train_knobs) -> list:
+    """The kernels line: each kernel's launches on its path, its largest
+    error against the plain version, its time beside the plain version's,
+    the library call's (flash) and its bound, at the path's shapes."""
+    bwd, fl = backward["train"], flash_res["train"]
+    src, pallas = "lara_tpu_torch/csrc/", "lara_tpu/ops/rasterizer/pallas_blend.py"
+
+    def rec(name, source, replaces, n, err, ms, plain_ms, bnd, library_ms=None):
+        return {"name": name, "route": "cuda", "source": src + source, "replaces": replaces,
+                "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms}
+
+    return [
+        rec("blend_fwd", "blend_fwd.cu", pallas + ":398", serving["launches"]["blend_fwd"],
+            max(r["max_abs_err"] for r in kernel.values()), kernel["eval"]["ms"],
+            kernel["eval"]["plain_ms"], (kernel["eval"]["bound_ms"], kernel["eval"]["bound_by"])),
+        rec("blend_fwd_stash", "blend_fwd.cu", pallas + ":398",
+            train["launches"]["blend_fwd_stash"],
+            max(r["fwd_max_abs_err"] for r in backward.values()), bwd["fwd_stash_ms"],
+            bwd["fwd_stash_plain_ms"], bwd["fwd_stash_bound"]),
+        rec("blend_bwd", "blend_bwd.cu", pallas + ":457", train["launches"]["blend_bwd"],
+            max(r["max_abs_err"] for r in backward.values()), bwd["bwd_ms"],
+            bwd["bwd_plain_ms"], bwd["bwd_bound"]),
+        rec("blend_bwd_replay", "blend_bwd.cu", pallas + ":432",
+            train_knobs["launches"]["blend_bwd_replay"],
+            max(r["max_abs_err"] for r in backward.values()), bwd["replay_ms"],
+            bwd["bwd_plain_ms"], bwd["replay_bound"]),
+        rec("flash_fwd", "flash_fwd.cu", "lara_tpu/ops/flash.py:78",
+            train_knobs["launches"]["flash_fwd"], max(r["max_abs_err"] for r in flash_res.values()),
+            fl["fwd_ms"], fl["fwd_plain_ms"], fl["fwd_bound"], fl["fwd_library_ms"]),
+        rec("flash_bwd", "flash_bwd.cu", "lara_tpu/ops/flash.py:78",
+            train_knobs["launches"]["flash_bwd"], max(r["max_abs_err"] for r in flash_res.values()),
+            fl["bwd_ms"], fl["bwd_plain_ms"], fl["bwd_bound"], fl["bwd_library_ms"]),
+    ]
 
 
 def main() -> int:
@@ -593,37 +895,34 @@ def main() -> int:
         print(f"[phase] {name}: {time.perf_counter() - t0:.2f} s")
         return res
 
-    phase("build", cuda_blend.build_library)
-    for line in cuda_blend.build_log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"[build] {line.strip()}")
+    phase("build", _build.build_library)
+    name = ""
+    for line in _build.build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = kernel_name(m.group(1))
+        elif "Used" in line and "registers" in line:
+            print(f"[build] {name}: {line.split(':', 1)[1].strip()}")
+        elif "spill" in line and not line.strip().startswith("0 bytes stack"):
+            print(f"[build] {name}: {line.strip()}")
+    print(f"[build] blend_bwd dynamic shared memory per block at chunk 64, both modes: "
+          f"{4 * (19 * 64 + 64 * 256 + 8 * 19 * 64)} bytes")
     kernel = phase("forward kernel", kernel_phase, dev)
-    backward = phase("backward kernel", backward_phase, dev)
-    serving = phase("serving", slice_phase, dev)
-    phase("train (reduced)", train_reduced_phase, dev)
-    train = phase("train (flagship)", train_flagship_phase, dev)
+    backward = phase("backward kernels (stash and replay)", backward_phase, dev)
+    flash_res = phase("flash attention", flash_phase, dev)
+    serving = phase("serving (default, then flash attention)", slice_phase, dev)
+    phase("train (reduced)", train_reduced_phase, dev, False)
+    phase("train (reduced, flash + replay)", train_reduced_phase, dev, True)
+    train = phase("train (flagship)", train_flagship_phase, dev, False)
+    torch.cuda.empty_cache()
+    train_knobs = phase("train (flagship, flash + replay)", train_flagship_phase, dev, True)
+    print(f"[train] fine micro-step s default {' '.join(f'{x:.3f}' for x in train['micro_s'])}"
+          f" peak {train['peak_gb']:.2f} GB; flash + replay "
+          f"{' '.join(f'{x:.3f}' for x in train_knobs['micro_s'])} peak "
+          f"{train_knobs['peak_gb']:.2f} GB; + dots {train_knobs['dots_s']:.3f} s peak "
+          f"{train_knobs['dots_peak_gb']:.2f} GB")
 
-    bwd = backward["train"]
-    records = [
-        {"name": "blend_fwd", "route": "cuda",
-         "source": "lara_tpu_torch/csrc/blend_fwd.cu",
-         "replaces": "lara_tpu/ops/rasterizer/pallas_blend.py:398",
-         "launches": serving["blend_fwd"],
-         "max_abs_err": max(r["max_abs_err"] for r in kernel.values()),
-         "ms": kernel["eval"]["ms"], "plain_ms": kernel["eval"]["plain_ms"]},
-        {"name": "blend_fwd_stash", "route": "cuda",
-         "source": "lara_tpu_torch/csrc/blend_fwd.cu",
-         "replaces": "lara_tpu/ops/rasterizer/pallas_blend.py:398",
-         "launches": train["launches"]["blend_fwd_stash"],
-         "max_abs_err": max(r["fwd_max_abs_err"] for r in backward.values()),
-         "ms": bwd["fwd_stash_ms"], "plain_ms": bwd["fwd_stash_plain_ms"]},
-        {"name": "blend_bwd", "route": "cuda",
-         "source": "lara_tpu_torch/csrc/blend_bwd.cu",
-         "replaces": "lara_tpu/ops/rasterizer/pallas_blend.py:457",
-         "launches": train["launches"]["blend_bwd"],
-         "max_abs_err": max(r["max_abs_err"] for r in backward.values()),
-         "ms": bwd["bwd_ms"], "plain_ms": bwd["bwd_plain_ms"]},
-    ]
+    records = kernel_records(kernel, backward, flash_res, serving, train, train_knobs)
     for r in records:
         if r["launches"] <= 0:
             raise AssertionError(f"{r['name']} was not launched on its path")

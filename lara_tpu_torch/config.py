@@ -18,19 +18,13 @@ import re
 from typing import Any, Dict, List, Optional, Tuple
 
 # Values the port accepts; any other would silently run another path than
-# the one asked for, so it raises (see ROADMAP.md for what is still to port):
-# bin_mode/pack_mode: TPU A/B variants of the binning; pallas_stash_carries
-# False: the replay backward kernel; remat_policy "dots"; flash_attn True:
-# the flash-attention kernel.
-_PORTED_MODES = {
-    "RenderConfig": {"bin_mode": ("sort",), "pack_mode": ("gather",),
-                     "pallas_stash_carries": (True,)},
-    "ModelConfig": {"remat_policy": ("full",), "flash_attn": (False,)},
-}
+# the one asked for, so it raises (see ROADMAP.md): bin_mode/pack_mode are
+# TPU A/B variants of the binning that the port does not have.
+_PORTED_MODES = {"bin_mode": ("sort",), "pack_mode": ("gather",)}
 
 
 def _check_ported(cfg) -> None:
-    for name, allowed in _PORTED_MODES[type(cfg).__name__].items():
+    for name, allowed in _PORTED_MODES.items():
         value = getattr(cfg, name)
         if value not in allowed:
             raise ValueError(
@@ -62,7 +56,9 @@ class ModelConfig:
     scene_size: float = 0.5
     # Training-memory knobs. `remat` checkpoints each ViT block and each
     # volume-transformer layer (torch.utils.checkpoint) when gradients are
-    # on; only remat_policy "full" and flash_attn False are ported.
+    # on, under remat_policy "full" (keep the inputs) or "dots" (also keep
+    # the dense layers' outputs; models/remat.py). flash_attn runs the
+    # ViT's self-attention through the flash kernels (ops/flash.py).
     # remat_views / remat_views_save exist for the TPU's lane-padded layout
     # (lara_tpu/models/lara.py:243-258): the port keeps every render's
     # residuals (the flagship B=3 step fits an H100, PERF.md) and accepts
@@ -77,9 +73,6 @@ class ModelConfig:
     # refines/re-renders the top-M surfels by opacity.
     fine_budget: int = 131072
 
-    def __post_init__(self):
-        _check_ported(self)
-
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
@@ -87,10 +80,11 @@ class RenderConfig:
     backend "auto" → the CUDA blend kernel (the port's one backend).
 
     `pallas_chunk` is the number of entries the blend kernels stage per
-    step. `pallas_stash_carries` must stay True: training always runs the
-    stash forward and the replay-free backward. `pallas_tiles_per_step` and
-    `pallas_cumsum` are TPU kernel knobs: accepted so the same YAML loads,
-    unused here."""
+    step. `pallas_stash_carries`: training renders keep the forward's
+    per-chunk carries for the backward (True), or the backward kernel
+    replays each tile's forward walk and keeps nothing between the passes
+    (False). `pallas_tiles_per_step` and `pallas_cumsum` are TPU kernel
+    knobs: accepted so the same YAML loads, unused here."""
     backend: str = "auto"
     tile: int = 16
     dup: int = 3
@@ -108,7 +102,7 @@ class RenderConfig:
     bin_mode: str = "sort"
     # depth-compaction data movement: only "gather" is ported
     pack_mode: str = "gather"
-    pallas_stash_carries: bool = True   # False (replay backward) not ported
+    pallas_stash_carries: bool = True   # False: the replay backward
     pallas_cumsum: str = "shift"        # TPU only, unused
 
     def __post_init__(self):

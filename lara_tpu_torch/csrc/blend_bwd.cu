@@ -1,10 +1,12 @@
-// Per-tile 2DGS surfel blend, backward from the stashed carries: the Hopper
-// kernel behind the backward of lara_tpu_torch/ops/rasterizer/cuda_blend.py
-// (_BlendFunction).
+// Per-tile 2DGS surfel blend, backward, from the stashed carries or by
+// replaying the forward walk: the Hopper kernel behind the backward of
+// lara_tpu_torch/ops/rasterizer/cuda_blend.py (_BlendFunction).
 //
-// Replaces the TPU kernel lara_tpu/ops/rasterizer/pallas_blend.py
-// (_bwd_kernel_stash -> _bwd_one_tile with carr_ref, launched by
-// _run_bwd_stash), which takes jax.vjp of _chunk_fn chunk by chunk. Here the
+// Replaces two TPU kernels of lara_tpu/ops/rasterizer/pallas_blend.py, which
+// take jax.vjp of _chunk_fn chunk by chunk: _bwd_kernel_stash
+// (_bwd_one_tile with carr_ref, launched by _run_bwd_stash) in stash mode,
+// and _bwd_kernel (_bwd_one_tile with carr_ref=None, launched by _run_bwd,
+// RenderConfig.pallas_stash_carries=False) in replay mode. Here the
 // vector-Jacobian product is derived by hand, in the suffix-sum form of the
 // CUDA 2DGS backward.
 //
@@ -59,13 +61,32 @@
 // warp composited the entry) and over the 8 warps through shared memory. No
 // global atomics: the cross-tile sum is the window gather's backward.
 //
+// Replay mode (stash null on input). The tile first walks its chunks
+// forward from (T = 1, A = M1 = M2 = 0) with the forward kernel's exit rule
+// (a pixel stops at the entry with T (1 - alpha) < transmittance_min, the
+// tile after the chunk where no pixel has T >= transmittance_min left, or
+// when the count runs out) and its exact operations, so every carry-in, the
+// final carry and the processed-chunk count ndone are bit for bit those the
+// stash forward writes; then the reverse walk runs unchanged, with the
+// totals (A, M1, M2) from the final carry. Where the carries live: each
+// thread keeps its own pixel's carry-in T per chunk in a per-thread array
+// of kMaxReplayChunks slots (local memory, cached in L1; the reverse walk
+// reads one slot per chunk) and the final (A, M1, M2) in registers. Shared
+// memory stays what the stash mode uses (108 KB at chunk 64, two blocks per
+// SM); [K/C + 1, 4, 256] f32 more of it (12 KB at the train config) would
+// have dropped the kernel to one block per SM. budget/chunk above
+// kMaxReplayChunks is refused. With the optional outputs non-null the replay
+// also writes what it rebuilt, in the stash forward's layout, for a check
+// against the stash path.
+//
 // What bounds it on this card. Per processed entry-pixel it does the
 // forward's ~40 flops and one expf twice (the forward walk and the reverse
 // walk) plus ~60 flops of derivatives, and per entry and warp up to
 // 19 x 5 shuffles: ALU and shuffle work, not bytes (a train render reads
-// 1024 tiles x 128 x 13 f32 = 6.8 MB of entries and writes as much).
-// Shared memory (about 108 KB per block at chunk 64) allows two blocks per
-// SM.
+// 1024 tiles x 128 x 13 f32 = 6.8 MB of entries and writes as much). The
+// replay mode adds one more forward walk (~40 flops and one expf per
+// entry-pixel of a processed chunk). Shared memory (about 108 KB per block
+// at chunk 64) allows two blocks per SM in both modes.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -75,6 +96,7 @@ namespace {
 constexpr int kPackCols = 13;
 constexpr int kNumChannels = 10;
 constexpr int kWarps = 8;  // 256 pixels per tile
+constexpr int kMaxReplayChunks = 16;  // cuda_blend.MAX_REPLAY_CHUNKS
 enum Field {
   kN0, kN1, kN2, kC2x, kC2y, kNc, kCau, kCbv, kCz,
   kAu0, kAu1, kAu2, kBv0, kBv1, kBv2, kR, kG, kB, kOp, kNumFields
@@ -125,11 +147,53 @@ __device__ __forceinline__ Hit entry_hit(const float* sm, int c, int j,
   return h;
 }
 
+// Stage the chunk's m rows and their pixel-independent quantities in shared
+// memory, in the forward kernel's exact operations.
+__device__ __forceinline__ void stage_chunk(float* sm, const float* rows,
+                                            int c, int m, float fx, float fy,
+                                            float half_w, float half_h) {
+  for (int j = threadIdx.x; j < m; j += blockDim.x) {
+    const float* r = rows + (size_t)j * kPackCols;
+    const float cx = r[0], cy = r[1], cz = r[2];
+    const float au0 = r[3], au1 = r[4], au2 = r[5];
+    const float bv0 = r[6], bv1 = r[7], bv2 = r[8];
+    float n0 = au1 * bv2 - au2 * bv1;
+    float n1 = au2 * bv0 - au0 * bv2;
+    float n2 = au0 * bv1 - au1 * bv0;
+    const float inv = 1.0f / sqrtf(n0 * n0 + n1 * n1 + n2 * n2 + 1e-20f);
+    const float sgn = (cx * n0 + cy * n1 + cz * n2 <= 0.0f) ? inv : -inv;
+    n0 *= sgn; n1 *= sgn; n2 *= sgn;
+    const float cz_safe = fabsf(cz) < 1e-6f ? 1e-6f : cz;
+    sm[kN0 * c + j] = n0;
+    sm[kN1 * c + j] = n1;
+    sm[kN2 * c + j] = n2;
+    sm[kC2x * c + j] = fx * cx / cz_safe + half_w;
+    sm[kC2y * c + j] = fy * cy / cz_safe + half_h;
+    sm[kNc * c + j] = n0 * cx + n1 * cy + n2 * cz;
+    sm[kCau * c + j] = au0 * cx + au1 * cy + au2 * cz;
+    sm[kCbv * c + j] = bv0 * cx + bv1 * cy + bv2 * cz;
+    sm[kCz * c + j] = cz;
+    sm[kAu0 * c + j] = au0;
+    sm[kAu1 * c + j] = au1;
+    sm[kAu2 * c + j] = au2;
+    sm[kBv0 * c + j] = bv0;
+    sm[kBv1 * c + j] = bv1;
+    sm[kBv2 * c + j] = bv2;
+    sm[kR * c + j] = r[9];
+    sm[kG * c + j] = r[10];
+    sm[kB * c + j] = r[11];
+    sm[kOp * c + j] = r[12];
+  }
+}
+
+// kReplay false: stash and ndone_arr are the stash forward's outputs, read.
+// kReplay true: they are optional outputs (null to skip) of the replay walk.
+template <bool kReplay>
 __global__ void blend_bwd_kernel(const float* __restrict__ entries,
                                  const int* __restrict__ counts,
                                  const float* __restrict__ scalars,
-                                 const float* __restrict__ stash,
-                                 const int* __restrict__ ndone_arr,
+                                 float* __restrict__ stash,
+                                 int* __restrict__ ndone_arr,
                                  const float* __restrict__ cot,
                                  float* __restrict__ grad, Params p) {
   extern __shared__ float smem[];
@@ -143,7 +207,6 @@ __global__ void blend_bwd_kernel(const float* __restrict__ entries,
   const int npix = blockDim.x;
   const int lane = pid & 31, warp = pid >> 5;
   const int n = min(counts[t], p.budget);
-  const int ndone = ndone_arr[t];
   const int slots = p.budget / c + 1;
 
   const float fx = p.width / (2.0f * scalars[0]);
@@ -154,17 +217,71 @@ __global__ void blend_bwd_kernel(const float* __restrict__ entries,
   const float dx = (px - half_w) / fx;
   const float dy = (py - half_h) / fy;
   const float nrm_c = p.dist_far / (p.dist_far - p.dist_near);
+  const float* tile_rows = entries + (size_t)t * p.budget * kPackCols;
+  float* st = stash == nullptr ? nullptr : stash + (size_t)t * slots * 4 * npix + pid;
+
+  int ndone;
+  float a_tot, m1_tot, m2_tot;
+  float t_in[kReplay ? kMaxReplayChunks : 1];  // replay: carry-in T per chunk
+  if constexpr (kReplay) {
+    // the forward kernel's walk, without its colour sums
+    float T = 1.0f, A = 0.0f, M1 = 0.0f, M2 = 0.0f;
+    auto put_carry = [&](int ci) {
+      if (st != nullptr) {
+        st[(ci * 4) * npix] = T;
+        st[(ci * 4 + 1) * npix] = A;
+        st[(ci * 4 + 2) * npix] = M1;
+        st[(ci * 4 + 3) * npix] = M2;
+      }
+    };
+    int ci = 0;
+    for (int k0 = 0; k0 < n; k0 += c) {
+      const int m = min(c, n - k0);
+      t_in[ci] = T;
+      put_carry(ci);
+      ++ci;
+      stage_chunk(sm, tile_rows + (size_t)k0 * kPackCols, c, m, fx, fy, half_w, half_h);
+      __syncthreads();
+      if (T >= p.t_min) {
+        for (int j = 0; j < m; ++j) {
+          const float op = sm[kOp * c + j];
+          if (!(op > 0.0f)) continue;
+          const Hit h = entry_hit(sm, c, j, px, py, dx, dy, op, p);
+          if (!(h.alpha >= p.alpha_min && h.depth >= p.near_cull)) continue;
+          const float t_next = T * (1.0f - h.alpha);
+          if (t_next < p.t_min) {
+            T = t_next;
+            break;
+          }
+          const float w = h.alpha * T;
+          const float md = nrm_c * (1.0f - p.dist_near / fmaxf(h.depth, 1e-6f));
+          A += w;
+          M1 += w * md;
+          M2 += w * md * md;
+          T = t_next;
+        }
+      }
+      // also the barrier before the next staging (here or in the reverse walk)
+      if (__syncthreads_count(T >= p.t_min) == 0) break;
+    }
+    put_carry(ci);
+    if (ndone_arr != nullptr && pid == 0) ndone_arr[t] = ci;
+    ndone = ci;
+    a_tot = A;
+    m1_tot = M1;
+    m2_tot = M2;
+  } else {
+    ndone = ndone_arr[t];
+    a_tot = st[(ndone * 4 + 1) * npix];
+    m1_tot = st[(ndone * 4 + 2) * npix];
+    m2_tot = st[(ndone * 4 + 3) * npix];
+  }
 
   const float* g = cot + (size_t)t * kNumChannels * npix + pid;
   const float g_r = g[0], g_g = g[npix], g_b = g[2 * npix], g_a = g[3 * npix];
   const float g_d = g[4 * npix], g_n0 = g[6 * npix], g_n1 = g[7 * npix];
   const float g_n2 = g[8 * npix], g_dist = g[9 * npix];
-  const float* st = stash + (size_t)t * slots * 4 * npix + pid;
-  const float a_tot = st[(ndone * 4 + 1) * npix];
-  const float m1_tot = st[(ndone * 4 + 2) * npix];
-  const float m2_tot = st[(ndone * 4 + 3) * npix];
 
-  const float* tile_rows = entries + (size_t)t * p.budget * kPackCols;
   float* tile_grad = grad + (size_t)t * p.budget * kPackCols;
   for (int i = ndone * c * kPackCols + pid; i < p.budget * kPackCols; i += npix)
     tile_grad[i] = 0.0f;
@@ -173,43 +290,12 @@ __global__ void blend_bwd_kernel(const float* __restrict__ entries,
   for (int ci = ndone - 1; ci >= 0; --ci) {
     const int k0 = ci * c;
     const int m = min(c, n - k0);
-    for (int j = pid; j < m; j += npix) {
-      const float* r = tile_rows + (size_t)(k0 + j) * kPackCols;
-      const float cx = r[0], cy = r[1], cz = r[2];
-      const float au0 = r[3], au1 = r[4], au2 = r[5];
-      const float bv0 = r[6], bv1 = r[7], bv2 = r[8];
-      float n0 = au1 * bv2 - au2 * bv1;
-      float n1 = au2 * bv0 - au0 * bv2;
-      float n2 = au0 * bv1 - au1 * bv0;
-      const float inv = 1.0f / sqrtf(n0 * n0 + n1 * n1 + n2 * n2 + 1e-20f);
-      const float sgn = (cx * n0 + cy * n1 + cz * n2 <= 0.0f) ? inv : -inv;
-      n0 *= sgn; n1 *= sgn; n2 *= sgn;
-      const float cz_safe = fabsf(cz) < 1e-6f ? 1e-6f : cz;
-      sm[kN0 * c + j] = n0;
-      sm[kN1 * c + j] = n1;
-      sm[kN2 * c + j] = n2;
-      sm[kC2x * c + j] = fx * cx / cz_safe + half_w;
-      sm[kC2y * c + j] = fy * cy / cz_safe + half_h;
-      sm[kNc * c + j] = n0 * cx + n1 * cy + n2 * cz;
-      sm[kCau * c + j] = au0 * cx + au1 * cy + au2 * cz;
-      sm[kCbv * c + j] = bv0 * cx + bv1 * cy + bv2 * cz;
-      sm[kCz * c + j] = cz;
-      sm[kAu0 * c + j] = au0;
-      sm[kAu1 * c + j] = au1;
-      sm[kAu2 * c + j] = au2;
-      sm[kBv0 * c + j] = bv0;
-      sm[kBv1 * c + j] = bv1;
-      sm[kBv2 * c + j] = bv2;
-      sm[kR * c + j] = r[9];
-      sm[kG * c + j] = r[10];
-      sm[kB * c + j] = r[11];
-      sm[kOp * c + j] = r[12];
-    }
+    stage_chunk(sm, tile_rows + (size_t)k0 * kPackCols, c, m, fx, fy, half_w, half_h);
     __syncthreads();
 
-    // forward walk of this chunk from its stashed carry-in: T_k of every
-    // entry this pixel composited, -1 for the others
-    float T = st[(ci * 4) * npix];
+    // forward walk of this chunk from its carry-in: T_k of every entry this
+    // pixel composited, -1 for the others
+    float T = kReplay ? t_in[ci] : st[(ci * 4) * npix];
     for (int j = 0; j < m; ++j) {
       float tk = -1.0f;
       const float op = sm[kOp * c + j];
@@ -362,28 +448,42 @@ size_t smem_bytes(int chunk, int tile) {
                           + (size_t)kWarps * kNumPartials * chunk);
 }
 
+template <bool kReplay>
+int launch(const float* entries, const int* counts, const float* scalars,
+           float* stash, int* ndone, const float* cot, float* grad,
+           int num_tiles, const Params& p, cudaStream_t stream) {
+  const size_t smem = smem_bytes(p.chunk, p.tile);
+  cudaError_t err = cudaFuncSetAttribute(
+      blend_bwd_kernel<kReplay>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  blend_bwd_kernel<kReplay><<<num_tiles, p.tile * p.tile, smem, stream>>>(
+      entries, counts, scalars, stash, ndone, cot, grad, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// stash f32 [num_tiles, budget/chunk + 1, 4, tile*tile] and ndone int32
-// [num_tiles] from lara_blend_fwd; cot f32 [num_tiles, 10, tile*tile];
-// grad f32 [num_tiles, budget, 13] (every element written). tile must be 16.
+// replay 0: stash f32 [num_tiles, budget/chunk + 1, 4, tile*tile] and ndone
+// int32 [num_tiles] are inputs, from lara_blend_fwd. replay 1: the kernel
+// rebuilds them, and writes them there where the pointers are non-null.
+// cot f32 [num_tiles, 10, tile*tile]; grad f32 [num_tiles, budget, 13]
+// (every element written). tile must be 16.
 extern "C" int lara_blend_bwd(const float* entries, const int* counts,
-                              const float* scalars, const float* stash,
-                              const int* ndone, const float* cot, float* grad,
+                              const float* scalars, float* stash, int* ndone,
+                              const float* cot, float* grad, int replay,
                               int num_tiles, int tiles_x, int tile, int width,
                               int height, int budget, int chunk,
                               float alpha_min, float t_min, float near_cull,
                               float dist_near, float dist_far,
                               float filter2d_invsq, void* stream) {
   if (tile * tile != 32 * kWarps) return static_cast<int>(cudaErrorInvalidValue);
+  if (replay && budget / chunk > kMaxReplayChunks)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!replay && (stash == nullptr || ndone == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   Params p{tiles_x, tile, width, height, budget, chunk,
            alpha_min, t_min, near_cull, dist_near, dist_far, filter2d_invsq};
-  const size_t smem = smem_bytes(chunk, tile);
-  cudaError_t err = cudaFuncSetAttribute(
-      blend_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  blend_bwd_kernel<<<num_tiles, tile * tile, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      entries, counts, scalars, stash, ndone, cot, grad, p);
-  return static_cast<int>(cudaGetLastError());
+  auto s = static_cast<cudaStream_t>(stream);
+  return replay ? launch<true>(entries, counts, scalars, stash, ndone, cot, grad, num_tiles, p, s)
+                : launch<false>(entries, counts, scalars, stash, ndone, cot, grad, num_tiles, p, s);
 }

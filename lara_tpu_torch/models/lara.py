@@ -73,23 +73,31 @@ class LaRaNet(nn.Module):
     """Parameters are f32 and named as the reference's state dict
     (img_encoder.model.*, dir_norm, view_embed, vol_decoder, decoder). They
     are drawn from `generator` (a CPU torch.Generator; seed 0 by default)
-    and then placed on `device`."""
+    and then placed on `device`: the CUDA device unless the caller asks for
+    another (the tests pass device="cpu"); without a CUDA device the
+    default raises instead of building on the CPU."""
 
     def __init__(self, cfg: Config, dtype: torch.dtype = torch.bfloat16,
-                 device="cpu", generator: Optional[torch.Generator] = None):
+                 device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
+        device = torch.device("cuda" if device is None else device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("LaRaNet builds on the CUDA device, and none is available; "
+                               "pass device='cpu' to build it on the CPU")
         self.cfg, self.dtype = cfg, dtype
         m = cfg.model
         with torch.device("meta"):
+            # flash attention in the ViT only, as lara_tpu/models/lara.py:70
             self.img_encoder = DinoViT(m.encoder_dim, m.encoder_depth,
-                                       m.encoder_heads, m.patch_size, remat=m.remat)
+                                       m.encoder_heads, m.patch_size, remat=m.remat,
+                                       remat_policy=m.remat_policy, use_flash=m.flash_attn)
             self.dir_norm = ModLN(m.encoder_dim, 32)
             self.view_embed = (nn.Parameter(torch.empty(1, 4, m.view_embed_dim, 1, 1, 1))
                                if m.view_embed_dim > 0 else None)
             self.vol_decoder = VolTransformer(
                 m.embedding_dim, m.encoder_dim + m.view_embed_dim, m.n_groups,
                 m.vol_embedding_reso, m.vol_embedding_out_dim, m.num_layers,
-                m.num_heads, remat=m.remat)
+                m.num_heads, remat=m.remat, remat_policy=m.remat_policy)
             self.sh_dim = (m.sh_degree + 1) ** 2 * 3
             self.decoder = Decoder(m.vol_embedding_out_dim, self.sh_dim, m.K)
         self.to_empty(device="cpu")
@@ -160,7 +168,8 @@ class LaRaNet(nn.Module):
             height=H, width=W, tile=r.tile, dup=r.dup, tile_budget=budget,
             sh_degree=self.cfg.model.sh_degree,
             visible_budget=r.visible_budget if train else r.eval_visible_budget,
-            pallas_chunk=min(r.pallas_chunk, budget))
+            pallas_chunk=min(r.pallas_chunk, budget),
+            stash_carries=r.pallas_stash_carries)
 
     def encode_images(self, imgs: torch.Tensor, rays_down: torch.Tensor) -> torch.Tensor:
         """imgs [BV, H, W, 3], rays_down [BV, h, w, 6] (h = H/16) →

@@ -2,7 +2,9 @@
 counterpart of `lara_tpu/models/vit.py` (the reference's `DinoWrapper`,
 lightning/network.py:14-55): ImageNet normalization, 16×16 patch embed,
 bicubic-resampled pos-embed (timm dynamic_img_size), 12 pre-norm blocks,
-final LayerNorm, CLS token dropped.
+final LayerNorm, CLS token dropped. With `use_flash` the self-attention
+runs through the flash kernels (`ops/flash.py`), as `use_flash` does in the
+JAX package (lara_tpu/models/vit.py:83-86).
 """
 
 from __future__ import annotations
@@ -12,24 +14,33 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from lara_tpu_torch.models.attention import attend
-from lara_tpu_torch.models.remat import maybe_remat
+from lara_tpu_torch.models.remat import check_policy, maybe_remat
+from lara_tpu_torch.ops.flash import flash_mha
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
 class TimmAttention(nn.Module):
-    """timm attention: joint qkv projection with bias, then proj."""
+    """timm attention: joint qkv projection with bias, then proj. The plain
+    path scales q in the working dtype before the product, as the JAX
+    einsum path does (lara_tpu/models/attention.py:76-79); with `use_flash`
+    the flash kernels take the [B, L, h, hd] views of q, k and v and scale
+    the logits in f32, as JAX's flash path does."""
 
-    def __init__(self, dim: int, num_heads: int):
+    def __init__(self, dim: int, num_heads: int, use_flash: bool = False):
         super().__init__()
-        self.num_heads = num_heads
+        self.num_heads, self.use_flash = num_heads, use_flash
         self.qkv = nn.Linear(dim, dim * 3)
         self.proj = nn.Linear(dim, dim)
 
     def forward(self, x):
         q, k, v = self.qkv(x).chunk(3, dim=-1)
-        return self.proj(attend(q, k, v, self.num_heads))
+        if not self.use_flash:
+            return self.proj(attend(q, k, v, self.num_heads))
+        b, l, e = q.shape
+        heads = [t.reshape(b, l, self.num_heads, e // self.num_heads) for t in (q, k, v)]
+        return self.proj(flash_mha(*heads).reshape(b, l, e))
 
 
 class Mlp(nn.Module):
@@ -43,10 +54,11 @@ class Mlp(nn.Module):
 
 
 class TimmBlock(nn.Module):
-    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0):
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 use_flash: bool = False):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
-        self.attn = TimmAttention(dim, num_heads)
+        self.attn = TimmAttention(dim, num_heads, use_flash)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
@@ -65,13 +77,16 @@ class TimmViT(nn.Module):
     """timm VisionTransformer structure and state-dict names."""
 
     def __init__(self, dim: int, depth: int, num_heads: int, patch: int = 16,
-                 native_grid: int = 14, remat: bool = False):
+                 native_grid: int = 14, remat: bool = False,
+                 remat_policy: str = "full", use_flash: bool = False):
         super().__init__()
         self.native_grid, self.remat = native_grid, remat
+        self.remat_policy = check_policy(remat_policy)
         self.patch_embed = PatchEmbed(dim, patch)
         self.cls_token = nn.Parameter(torch.empty(1, 1, dim))
         self.pos_embed = nn.Parameter(torch.empty(1, native_grid * native_grid + 1, dim))
-        self.blocks = nn.ModuleList([TimmBlock(dim, num_heads) for _ in range(depth)])
+        self.blocks = nn.ModuleList([TimmBlock(dim, num_heads, use_flash=use_flash)
+                                     for _ in range(depth)])
         self.norm = nn.LayerNorm(dim, eps=1e-6)
 
     def forward(self, x):
@@ -91,7 +106,7 @@ class TimmViT(nn.Module):
         cls_tok = (self.cls_token + pos_cls).expand(b, -1, -1).to(x.dtype)
         x = torch.cat([cls_tok, x], dim=1)
         for blk in self.blocks:
-            x = maybe_remat(self.remat, blk, x)
+            x = maybe_remat(self.remat, blk, x, policy=self.remat_policy)
         return self.norm(x)[:, 1:]                       # drop CLS
 
 
@@ -100,9 +115,11 @@ class DinoViT(nn.Module):
     patch tokens [B, (H/p)(W/p), dim]; the timm model sits under `model`."""
 
     def __init__(self, dim: int = 768, depth: int = 12, num_heads: int = 12,
-                 patch_size: int = 16, remat: bool = False):
+                 patch_size: int = 16, remat: bool = False,
+                 remat_policy: str = "full", use_flash: bool = False):
         super().__init__()
-        self.model = TimmViT(dim, depth, num_heads, patch_size, remat=remat)
+        self.model = TimmViT(dim, depth, num_heads, patch_size, remat=remat,
+                             remat_policy=remat_policy, use_flash=use_flash)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         mean = torch.tensor(IMAGENET_MEAN, dtype=images.dtype, device=images.device)

@@ -16,7 +16,7 @@ import torch
 import torch.nn as nn
 
 from lara_tpu_torch.models.attention import MultiHeadAttention
-from lara_tpu_torch.models.remat import maybe_remat
+from lara_tpu_torch.models.remat import check_policy, maybe_remat
 
 
 def group_volume(x: torch.Tensor, block: int) -> torch.Tensor:
@@ -110,9 +110,9 @@ class VolTransformer(nn.Module):
 
     def __init__(self, embed_dim: int, image_feat_dim: int, n_groups: Sequence[int],
                  vol_low_res: int, out_dim: int, num_layers: int, num_heads: int,
-                 remat: bool = False):
+                 remat: bool = False, remat_policy: str = "full"):
         super().__init__()
-        self.remat = remat
+        self.remat, self.remat_policy = remat, check_policy(remat_policy)
         self.block_sizes = [vol_low_res // n for n in n_groups]
         r = vol_low_res
         self.pos_embed = nn.Parameter(torch.empty(1, embed_dim, r, r, r))
@@ -128,6 +128,7 @@ class VolTransformer(nn.Module):
         x = _channels_last(self.pos_embed).expand(b, -1, -1, -1, -1)
         for i, layer in enumerate(self.layers):
             x = maybe_remat(self.remat, layer, x, image_feats,
-                            self.block_sizes[i % len(self.block_sizes)])
+                            self.block_sizes[i % len(self.block_sizes)],
+                            policy=self.remat_policy)
         x = self.norm(x)
         return _channels_last(self.deconv(_channels_first(x)))

@@ -1,38 +1,33 @@
 """Per-tile surfel compositing: the hand-written CUDA kernels and their
 plain PyTorch version, the counterpart of
 `lara_tpu/ops/rasterizer/pallas_blend.py` (`blend_tiles_pallas` and its
-custom VJP with `pallas_stash_carries=True`).
+custom VJP, with `pallas_stash_carries` True or False).
 
 `blend_tiles` returns the raw accumulators [T, NUM_CHANNELS, tile²]: rgb,
 alpha, depth sum, median depth, normal xyz, distortion (no background
 blend, unnormalized depth).
   - CPU tensors run `blend_tiles_reference` under ordinary autograd: it is
-    the plain version of both kernels.
+    the plain version of every kernel here.
   - CUDA tensors launch `csrc/blend_fwd.cu`. When autograd will need the
-    gradient of `entries`, the forward writes its stash (per-chunk carries
-    and processed-chunk counts) and the backward launches
-    `csrc/blend_bwd.cu` on it; the median's gradient is 0 in both
+    gradient of `entries`, the backward launches `csrc/blend_bwd.cu`:
+    with `cfg.stash_carries` the forward writes its stash (per-chunk
+    carries and processed-chunk counts) and the backward reads it; without
+    it the forward writes nothing more and the backward replays each
+    tile's forward walk to rebuild the carries (the replay mode, the
+    counterpart of `_run_bwd`). The median's gradient is 0 in both
     versions, as in the TPU kernel. A kernel that cannot be built or
     launched raises: nothing falls back.
 
 Each wrapper counts its launches in `LAUNCHES` (forward, forward with
-stash, backward). The libraries are compiled at first use with nvcc into
-`build/lara_tpu_torch/` of the checkout, one nvcc per source started
-together, keyed by a hash of the source and flags, and bound with ctypes
-(plain C entry points, no PyTorch headers).
+stash, backward from the stash, replay backward). The libraries are built
+by `lara_tpu_torch/ops/_build.py`.
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
-
 import torch
 
+from lara_tpu_torch.ops import _build
 from lara_tpu_torch.ops.rasterizer.types import RasterizeConfig
 
 NUM_CHANNELS = 10   # rgb3 + alpha + depth_sum + depth_med + normal3 + dist
@@ -41,76 +36,16 @@ MAX_CHUNK = 512     # 19 staged f32 per entry must fit 48 KB of shared memory
 # the backward keeps T of every chunk entry for every pixel ([chunk, 256]
 # f32) and the per-warp partial sums in shared memory: 219 KB at 128
 MAX_BWD_CHUNK = 128
-
-_CSRC = Path(__file__).resolve().parents[2] / "csrc"
-_SOURCES = {"fwd": _CSRC / "blend_fwd.cu", "bwd": _CSRC / "blend_bwd.cu"}
-_BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "lara_tpu_torch"
-# --fmad=false: every product and sum rounds on its own, as in the plain
-# version's elementwise ops, so alpha is computed bit for bit alike and the
-# alpha >= alpha_min cull takes the same decisions in both; the backward's
-# forward walk repeats the forward kernel's decisions exactly
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v"]
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = {
-    "fwd": ("lara_blend_fwd", [_P] * 6 + [_I] * 7 + [_F] * 6 + [_P]),
-    "bwd": ("lara_blend_bwd", [_P] * 7 + [_I] * 7 + [_F] * 6 + [_P]),
-}
-_libs: dict = {}
-build_log = ""      # nvcc's output (registers, shared memory) of this process's builds
-LAUNCHES = {"blend_fwd": 0, "blend_fwd_stash": 0, "blend_bwd": 0}
+# the replay backward keeps each chunk's carry-in T of its pixel in a
+# per-thread array of this many slots (blend_bwd.cu, kMaxReplayChunks)
+MAX_REPLAY_CHUNKS = 16
+LAUNCHES = {"blend_fwd": 0, "blend_fwd_stash": 0, "blend_bwd": 0,
+            "blend_bwd_replay": 0}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = Path(cuda_home) / "bin" / "nvcc"
-    if not path.exists():
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-    return str(path)
-
-
-def build_library() -> dict:
-    """Compile (once per source hash) and load both kernel libraries: one
-    nvcc process per source, all started before any is waited for.
-    Returns {"fwd": CDLL, "bwd": CDLL}."""
-    global build_log
-    if _libs:
-        return _libs
-    paths, procs = {}, {}
-    for name, src in _SOURCES.items():
-        key = hashlib.sha256(src.read_bytes() + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-        paths[name] = _BUILD_DIR / f"{src.stem}_{key}.so"
-        if not paths[name].exists():
-            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = paths[name].with_suffix(f".{os.getpid()}.tmp")
-            procs[name] = (tmp, subprocess.Popen(
-                [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(src)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    logs = []
-    for name, (tmp, proc) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build {_SOURCES[name]}:\n{out}")
-        os.replace(tmp, paths[name])
-        logs.append(out)
-    build_log = "".join(logs)
-    libs = {}
-    for name, (sym, argtypes) in _ARGTYPES.items():
-        lib = ctypes.CDLL(str(paths[name]))
-        fn = getattr(lib, sym)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        libs[name] = lib
-    _libs.update(libs)
-    return _libs
 
 
 def _check_inputs(entries, counts, scalars, cfg: RasterizeConfig):
@@ -145,11 +80,6 @@ def _raster_args(cfg: RasterizeConfig):
             cfg.dist_far, cfg.filter2d_invsq)
 
 
-def _raise_on(err: int, what: str):
-    if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed (cudaError {err})")
-
-
 def blend_fwd(entries, counts, scalars, cfg: RasterizeConfig, stash: bool = False):
     """Launch `blend_fwd.cu` on CUDA tensors. Returns the accumulators
     [T, 10, P], and with `stash` also the carries
@@ -158,7 +88,7 @@ def blend_fwd(entries, counts, scalars, cfg: RasterizeConfig, stash: bool = Fals
     t, p = _check_inputs(entries, counts, scalars, cfg)
     entries, counts, scalars = _cuda_args(entries.device, entries, counts, scalars)
     dev = entries.device
-    lib = build_library()["fwd"]
+    lib = _build.build_library()["blend_fwd"]
     out = torch.empty((t, NUM_CHANNELS, p), dtype=torch.float32, device=dev)
     carries = ndone = None
     if stash:
@@ -172,9 +102,38 @@ def blend_fwd(entries, counts, scalars, cfg: RasterizeConfig, stash: bool = Fals
             out.data_ptr(), None if carries is None else carries.data_ptr(),
             None if ndone is None else ndone.data_ptr(),
             *_raster_args(cfg), stream)
-    _raise_on(err, "blend_fwd")
+    _build.raise_on(err, "blend_fwd")
     LAUNCHES["blend_fwd_stash" if stash else "blend_fwd"] += 1
     return (out, carries, ndone) if stash else out
+
+
+def _launch_bwd(entries, counts, scalars, carries, ndone, cot,
+                cfg: RasterizeConfig, replay: bool) -> torch.Tensor:
+    t, p = _check_inputs(entries, counts, scalars, cfg)
+    if cfg.pallas_chunk > MAX_BWD_CHUNK or p != 256:
+        raise ValueError(f"the blend backward takes 16×16 tiles and "
+                         f"pallas_chunk ≤ {MAX_BWD_CHUNK}")
+    if replay and cfg.tile_budget // cfg.pallas_chunk > MAX_REPLAY_CHUNKS:
+        raise ValueError(f"the replay backward takes at most {MAX_REPLAY_CHUNKS} "
+                         f"chunks per tile (tile_budget / pallas_chunk)")
+    dev = entries.device
+    entries, counts, scalars, cot = _cuda_args(
+        dev, entries, counts, scalars, cot.to(torch.float32))
+    if carries is not None:
+        carries, ndone = _cuda_args(dev, carries, ndone)
+    lib = _build.build_library()["blend_bwd"]
+    grad = torch.empty_like(entries)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.lara_blend_bwd(
+            entries.data_ptr(), counts.data_ptr(), scalars.data_ptr(),
+            None if carries is None else carries.data_ptr(),
+            None if ndone is None else ndone.data_ptr(), cot.data_ptr(),
+            grad.data_ptr(), int(replay), *_raster_args(cfg), stream)
+    name = "blend_bwd_replay" if replay else "blend_bwd"
+    _build.raise_on(err, name)
+    LAUNCHES[name] += 1
+    return grad
 
 
 def blend_bwd(entries, counts, scalars, carries, ndone, cot,
@@ -183,41 +142,52 @@ def blend_bwd(entries, counts, scalars, carries, ndone, cot,
     the entries from the cotangent `cot` [T, 10, P] of the accumulators
     (channel 5, the median, is ignored) and the stash of
     `blend_fwd(..., stash=True)`."""
-    t, p = _check_inputs(entries, counts, scalars, cfg)
-    if cfg.pallas_chunk > MAX_BWD_CHUNK or p != 256:
-        raise ValueError(f"the blend backward takes 16×16 tiles and "
-                         f"pallas_chunk ≤ {MAX_BWD_CHUNK}")
-    dev = entries.device
-    entries, counts, scalars, carries, ndone, cot = _cuda_args(
-        dev, entries, counts, scalars, carries, ndone, cot.to(torch.float32))
-    lib = build_library()["bwd"]
-    grad = torch.empty_like(entries)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.lara_blend_bwd(
-            entries.data_ptr(), counts.data_ptr(), scalars.data_ptr(),
-            carries.data_ptr(), ndone.data_ptr(), cot.data_ptr(),
-            grad.data_ptr(), *_raster_args(cfg), stream)
-    _raise_on(err, "blend_bwd")
-    LAUNCHES["blend_bwd"] += 1
-    return grad
+    return _launch_bwd(entries, counts, scalars, carries, ndone, cot, cfg, replay=False)
+
+
+def blend_bwd_replay(entries, counts, scalars, cot, cfg: RasterizeConfig,
+                     return_carries: bool = False):
+    """Launch `blend_bwd.cu` in replay mode on CUDA tensors: the same
+    gradient as `blend_bwd`, with each tile's carries rebuilt in the kernel
+    by replaying its forward walk. With `return_carries` the kernel also
+    writes what it replayed, in the layout of the stash forward (carries
+    [T, budget/chunk + 1, 4, P], slots past ndone unwritten, and ndone),
+    for a check against the stash; returns (grad, carries, ndone) then."""
+    carries = ndone = None
+    if return_carries:
+        t, p = _check_inputs(entries, counts, scalars, cfg)
+        slots = cfg.tile_budget // cfg.pallas_chunk + 1
+        carries = torch.empty((t, slots, 4, p), dtype=torch.float32, device=entries.device)
+        ndone = torch.empty((t,), dtype=torch.int32, device=entries.device)
+    grad = _launch_bwd(entries, counts, scalars, carries, ndone, cot, cfg, replay=True)
+    return (grad, carries, ndone) if return_carries else grad
 
 
 class _BlendFunction(torch.autograd.Function):
-    """The stash forward and the backward kernel as one differentiable op
-    (the counterpart of `blend_tiles_pallas`'s custom VJP)."""
+    """The forward and the backward kernel as one differentiable op (the
+    counterpart of `blend_tiles_pallas`'s custom VJP): with
+    `cfg.stash_carries` the stash forward and the backward from it, else
+    the forward without stash and the replay backward, which keeps only
+    the forward's inputs alive between the passes."""
 
     @staticmethod
     def forward(ctx, entries, counts, scalars, cfg):
-        out, carries, ndone = blend_fwd(entries, counts, scalars, cfg, stash=True)
-        ctx.save_for_backward(entries, counts, scalars, carries, ndone)
         ctx.cfg = cfg
+        if cfg.stash_carries:
+            out, carries, ndone = blend_fwd(entries, counts, scalars, cfg, stash=True)
+            ctx.save_for_backward(entries, counts, scalars, carries, ndone)
+        else:
+            out = blend_fwd(entries, counts, scalars, cfg)
+            ctx.save_for_backward(entries, counts, scalars)
         return out
 
     @staticmethod
     def backward(ctx, cot):
-        entries, counts, scalars, carries, ndone = ctx.saved_tensors
-        return blend_bwd(entries, counts, scalars, carries, ndone, cot, ctx.cfg), None, None, None
+        if ctx.cfg.stash_carries:
+            grad = blend_bwd(*ctx.saved_tensors, cot, ctx.cfg)
+        else:
+            grad = blend_bwd_replay(*ctx.saved_tensors, cot, ctx.cfg)
+        return grad, None, None, None
 
 
 def blend_tiles(entries: torch.Tensor, counts: torch.Tensor,

@@ -29,6 +29,10 @@ class RasterizeConfig:
     dist_near / dist_far: depth-normalization range of the distortion
                  accumulator.
     filter2d_invsq: inverse variance of the screen-space low-pass filter.
+    stash_carries: training renders keep the forward's per-chunk carries
+                 for the backward (True), or the backward replays each
+                 tile's forward walk (False; RenderConfig's
+                 pallas_stash_carries).
     """
 
     height: int = 512
@@ -45,6 +49,7 @@ class RasterizeConfig:
     dist_near: float = 0.2
     dist_far: float = 100.0
     filter2d_invsq: float = 2.0
+    stash_carries: bool = True
 
     def __post_init__(self):
         if self.height % self.tile or self.width % self.tile:

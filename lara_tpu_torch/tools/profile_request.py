@@ -1,11 +1,14 @@
 """Where the time of one flagship serving request goes, on one CUDA GPU.
 
-    python -m lara_tpu_torch.tools.profile_request
+    python -m lara_tpu_torch.tools.profile_request [--flash]
 
 Run from the repository root (it takes its request builder from
 `chip_smoke.py`). The flagship `Config()` with seeded random weights serves
 B=1 requests of 4+4 views at 512² through `make_forward`: two warm-up
-requests, then REQUESTS for each measurement. It prints:
+requests, then REQUESTS for each measurement. `--flash` sets
+`model.flash_attn` (the flash-attention kernels in the ViT); the other
+training knobs (`--replay`, `--remat-policy` of `profile_train`) change
+nothing in serving, which has no backward. It prints:
   1. the `nvidia-smi` name and power limit of the card;
   2. the host wall time per request, unsynchronised inside the request;
   3. `torch.profiler` over the same requests: the ops by device time, the
@@ -17,7 +20,9 @@ requests, then REQUESTS for each measurement. It prints:
 
 from __future__ import annotations
 
+import argparse
 import collections
+import dataclasses
 import functools
 import statistics
 import time
@@ -46,6 +51,7 @@ def _kernel_intervals(prof):
 @contextmanager
 def _stage_timers(net, times):
     """Patch the path's stage functions with synchronised timers; undo on exit."""
+    from lara_tpu_torch.models import vit
     from lara_tpu_torch.ops import renderer
     from lara_tpu_torch.ops.rasterizer import api, cuda, cuda_blend
 
@@ -72,6 +78,7 @@ def _stage_timers(net, times):
         (api, "repack_from_binned", "repack (fine rebind)"),
         (cuda, "window_gather", "window_gather"),
         (cuda_blend, "blend_tiles", "blend kernel"),
+        (vit, "flash_mha", "flash attention forward (with --flash)"),
         (renderer, "_postprocess", "postprocess (normals)"),
     ]
     saved = []
@@ -90,17 +97,22 @@ def _stage_timers(net, times):
                 delattr(obj, attr)
 
 
-def main() -> int:
+def main(argv=None) -> int:
     from chip_smoke import make_batch, nvidia_smi_line
     from lara_tpu_torch.config import Config
     from lara_tpu_torch.models import LaRaNet
     from lara_tpu_torch.train.step import make_forward
 
+    ap = argparse.ArgumentParser(description="profile one flagship serving request")
+    ap.add_argument("--flash", action="store_true", help="model.flash_attn=True")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_request: no CUDA device")
     dev = torch.device("cuda", 0)
     print(nvidia_smi_line())
     cfg = Config()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, flash_attn=args.flash))
+    print(f"[config] flash_attn={args.flash}")
     net = LaRaNet(cfg, dtype=torch.bfloat16, device=dev,
                   generator=torch.Generator().manual_seed(0))
     fwd = make_forward(net, with_fine=True)

@@ -1,13 +1,17 @@
 """Where the time of one flagship training micro-step goes, on one CUDA GPU.
 
-    python -m lara_tpu_torch.tools.profile_train
+    python -m lara_tpu_torch.tools.profile_train [--flash] [--replay]
+                                                 [--remat-policy full|dots]
 
 Run from the repository root (it takes `make_batch` from
 `chip_smoke.py`). The flagship `Config()` with seeded random weights takes
 fine micro-steps (B=3 scenes of 4+4 views at 512², train raster budgets,
 bf16 autocast, grad_accum 2) through `make_train_step`, from micro-step
 2002 (loss gates on): two warm-up micro-steps, then MICRO_STEPS for each
-measurement. It prints:
+measurement. `--flash` sets `model.flash_attn` (the flash-attention
+kernels in the ViT), `--replay` sets `render.pallas_stash_carries=False`
+(the replay blend backward), `--remat-policy` the per-layer remat policy.
+It prints:
   1. the `nvidia-smi` name and power limit of the card;
   2. the host wall time per micro-step and per optimizer step;
   3. `torch.profiler` over the same micro-steps: the ops by device time,
@@ -16,12 +20,17 @@ measurement. It prints:
   4. a stage breakdown with `torch.cuda.synchronize()` around every stage:
      the forward's stages (as `profile_request`), the losses, the
      backward and the optimizer;
-  5. peak device memory of a micro-step with `model.remat` on and off.
+  5. peak device memory of an optimizer step (grad_accum micro-steps, so
+     that every reading spans both micro-steps of a pair) with
+     `model.remat` on and off, and with the blend's stash on and off (the
+     replay backward).
 """
 
 from __future__ import annotations
 
+import argparse
 import collections
+import dataclasses
 import statistics
 import time
 
@@ -37,7 +46,12 @@ def _set_remat(net, on: bool):
     net.vol_decoder.remat = on
 
 
-def main() -> int:
+def _with_stash(cfg, on: bool):
+    return dataclasses.replace(cfg, render=dataclasses.replace(
+        cfg.render, pallas_stash_carries=on))
+
+
+def main(argv=None) -> int:
     from chip_smoke import make_batch, nvidia_smi_line
     from lara_tpu_torch.config import Config
     from lara_tpu_torch.models import LaRaNet
@@ -45,11 +59,20 @@ def main() -> int:
     from lara_tpu_torch.train.state import TrainState
     from lara_tpu_torch.train.step import make_train_step
 
+    ap = argparse.ArgumentParser(description="profile one flagship train micro-step")
+    ap.add_argument("--flash", action="store_true", help="model.flash_attn=True")
+    ap.add_argument("--replay", action="store_true", help="render.pallas_stash_carries=False")
+    ap.add_argument("--remat-policy", default="full", choices=("full", "dots"))
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: no CUDA device")
     dev = torch.device("cuda", 0)
     print(nvidia_smi_line())
     cfg = Config()
+    cfg = _with_stash(dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, flash_attn=args.flash, remat_policy=args.remat_policy)), not args.replay)
+    print(f"[config] flash_attn={args.flash} pallas_stash_carries={not args.replay} "
+          f"remat_policy={args.remat_policy}")
     net = LaRaNet(cfg, dtype=torch.bfloat16, device=dev,
                   generator=torch.Generator().manual_seed(0))
     batch = make_batch(11, cfg.n_views, dev, scenes=cfg.train.batch_size)
@@ -119,17 +142,27 @@ def main() -> int:
     for name, ms in sorted(times.items(), key=lambda kv: -kv[1]):
         print(f"[stages] {name:<45s} {ms / r:9.3f}")
 
-    for on in (True, False):
-        _set_remat(net, on)
+    def peak(what):
+        while state.step % k:            # start at the first micro-step of a pair
+            step(batch)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
-        step(batch)
+        for _ in range(k):
+            step(batch)
         torch.cuda.synchronize()
-        print(f"[memory] remat {'on ' if on else 'off'}: peak device memory "
-              f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB, micro-step "
-              f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
+        print(f"[memory] {what}: peak device memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB, optimizer step "
+              f"({k} micro-steps) {(time.perf_counter() - t0) * 1e3:.3f} ms")
+
+    for on in (True, False):
+        _set_remat(net, on)
+        peak(f"remat {'on ' if on else 'off'}")
     _set_remat(net, True)
+    for on in (True, False):
+        net.cfg = _with_stash(cfg, on)
+        peak(f"stash {'on ' if on else 'off'} (remat on)")
+    net.cfg = cfg
     print(nvidia_smi_line())
     return 0
 

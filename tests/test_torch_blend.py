@@ -13,9 +13,12 @@ compared on all but at most 0.1% of the pixels.
 
 The backward: autograd of the plain version against `jax.vjp` of
 `blend_tiles_pallas` with `pallas_stash_carries=True` (its replay-free
-backward kernel, interpret mode), with a random cotangent on all 10
-channels, at the gradient bar of tests/test_pallas.py: atol 5e-4, rtol
-1e-3. The median's cotangent is ignored by both (its gradient is 0).
+backward kernel, interpret mode) and with `pallas_stash_carries=False`
+(its replay backward kernel, `_run_bwd`), with a random cotangent on all
+10 channels, at the gradient bar of tests/test_pallas.py: atol 5e-4, rtol
+1e-3. The median's cotangent is ignored by both (its gradient is 0). On
+the card, the replay backward kernel is held to the stash path bit for bit,
+as tests/test_pallas.py holds the JAX kernels.
 """
 
 import dataclasses
@@ -30,6 +33,7 @@ from lara_tpu.ops.rasterizer import RasterizeConfig as JaxRasterizeConfig
 from lara_tpu.ops.rasterizer.preprocess import preprocess_surfels as jax_preprocess
 from lara_tpu.ops.rasterizer.tiled import bin_view as jax_bin_view
 from lara_tpu.ops.rasterizer.tiled import window_gather as jax_window_gather
+from lara_tpu_torch.ops import _build
 from lara_tpu_torch.ops.rasterizer import cuda_blend
 from lara_tpu_torch.ops.rasterizer.types import RasterizeConfig
 from tests.test_rasterizer import front_camera
@@ -98,8 +102,8 @@ def jax_cfg(**kw):
 def torch_cfg(cfg):
     """The port's RasterizeConfig with the same values as a JAX one."""
     fields = {f.name for f in dataclasses.fields(RasterizeConfig)}
-    return RasterizeConfig(**{k: v for k, v in dataclasses.asdict(cfg).items()
-                              if k in fields})
+    return RasterizeConfig(stash_carries=cfg.pallas_stash_carries,
+                           **{k: v for k, v in dataclasses.asdict(cfg).items() if k in fields})
 
 
 def make_windows(scene, cfg):
@@ -183,12 +187,12 @@ def test_blend_tiles_rejects_bad_inputs():
 
 def test_failed_build_raises(monkeypatch, tmp_path):
     """Without nvcc the build raises; nothing falls back."""
-    monkeypatch.setattr(cuda_blend, "_libs", {})
-    monkeypatch.setattr(cuda_blend, "_BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "_BUILD_DIR", tmp_path)
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     with pytest.raises(RuntimeError, match="nvcc"):
-        cuda_blend.build_library()
+        _build.build_library()
 
 
 @pytest.mark.cuda
@@ -278,6 +282,63 @@ def test_reference_backward_matches_pallas_edge_cases(pallas_interpret, case):
     rows = np.arange(cfg.tile_budget)[None, :] < np.minimum(counts, cfg.tile_budget)[:, None]
     assert np.all(got[~rows] == 0.0)
     assert np.abs(got[rows]).max() > 0.0
+
+
+@pytest.mark.parametrize("budget,chunk", [(64, 32), (64, 64), (128, 32), (128, 64)])
+def test_reference_backward_matches_pallas_replay(pallas_interpret, budget, chunk):
+    """Against the replay backward kernel (`pallas_stash_carries=False`)."""
+    cfg = jax_cfg(tile_budget=budget, pallas_chunk=chunk, dup=3, pallas_stash_carries=False)
+    entries, counts, scalars = make_windows(scene_np(5, 800), cfg)
+    got, want = grads_both(pallas_interpret, entries, counts, scalars, cfg,
+                           cotangent(cfg.num_tiles, budget + chunk))
+    assert np.abs(want).max() > 1.0
+    np.testing.assert_allclose(got, want, atol=5e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("case", ["opaque", "empty_and_over_budget"])
+def test_reference_backward_matches_pallas_replay_edge_cases(pallas_interpret, case):
+    cfg, (entries, counts, scalars) = backward_case(case)
+    cfg = dataclasses.replace(cfg, pallas_stash_carries=False)
+    got, want = grads_both(pallas_interpret, entries, counts, scalars, cfg,
+                           cotangent(cfg.num_tiles, 1))
+    np.testing.assert_allclose(got, want, atol=5e-4, rtol=1e-3)
+    rows = np.arange(cfg.tile_budget)[None, :] < np.minimum(counts, cfg.tile_budget)[:, None]
+    assert np.all(got[~rows] == 0.0)
+
+
+def test_replay_knob_reaches_the_wrapper():
+    """RasterizeConfig.stash_carries picks the backward kernel; an unported
+    chunk count for the replay is refused before any launch."""
+    cfg = jax_cfg(tile_budget=64, pallas_chunk=32, pallas_stash_carries=False)
+    assert torch_cfg(cfg).stash_carries is False
+    assert torch_cfg(jax_cfg()).stash_carries is True
+    big = RasterizeConfig(height=32, width=32, tile_budget=1024, pallas_chunk=32)
+    entries = torch.zeros(big.num_tiles, 1024, 13)
+    counts = torch.zeros(big.num_tiles, dtype=torch.int32)
+    with pytest.raises(ValueError, match="replay"):
+        cuda_blend.blend_bwd_replay(entries, counts, torch.ones(2),
+                                    torch.zeros(big.num_tiles, 10, 256), big)
+
+
+@pytest.mark.cuda
+def test_replay_backward_matches_stash_on_cuda():
+    """The replay backward kernel against the stash forward + backward on
+    the card: carries, processed-chunk counts and gradients bit for bit;
+    skipped without a GPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    cfg = jax_cfg(tile_budget=128, pallas_chunk=32, dup=3)
+    entries, counts, scalars = make_windows(scene_np(5, 400), cfg)
+    tcfg = torch_cfg(cfg)
+    e, c, sc = (torch.from_numpy(a).cuda() for a in (entries, counts, scalars))
+    cot = torch.from_numpy(cotangent(entries.shape[0], 3)).cuda()
+    _, carries, ndone = cuda_blend.blend_fwd(e, c, sc, tcfg, stash=True)
+    grad = cuda_blend.blend_bwd(e, c, sc, carries, ndone, cot, tcfg)
+    grad_r, carries_r, ndone_r = cuda_blend.blend_bwd_replay(e, c, sc, cot, tcfg,
+                                                             return_carries=True)
+    assert torch.equal(ndone_r, ndone) and torch.equal(grad_r, grad)
+    used = (torch.arange(carries.shape[1], device="cuda")[None, :] <= ndone[:, None])
+    assert torch.equal(carries_r[used], carries[used])
 
 
 def test_reference_median_has_no_gradient():

@@ -4,6 +4,7 @@ defaults and YAML merge results."""
 import dataclasses
 
 import pytest
+import torch
 
 import lara_tpu.config as jcfg
 import lara_tpu_torch.config as tcfg
@@ -44,18 +45,27 @@ def test_unported_render_modes_raise(override):
 @pytest.mark.parametrize("override", ["render.pallas_stash_carries=false",
                                       "model.flash_attn=true",
                                       "model.remat_policy=dots"])
-def test_unported_training_knobs_raise(override):
-    """Each of these selects a kernel or mode the port does not have yet
-    (the replay backward, flash attention, the dots remat policy): it
-    raises instead of running another path."""
-    with pytest.raises(ValueError):
-        tcfg.load_config("configs/base.yaml", overrides=[override])
+def test_training_knobs_accepted(override):
+    """Each of these selects a kernel or mode of the training path (the
+    replay backward, flash attention, the dots remat policy): it loads in
+    both packages and reaches the module that reads it."""
+    ours = tcfg.load_config("configs/base.yaml", overrides=[override])
+    theirs = jcfg.load_config("configs/base.yaml", overrides=[override])
+    assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+
+    from lara_tpu_torch.models import LaRaNet
+    from tests.test_model import tiny_config
+
     section, assign = override.split(".")
     name, value = assign.split("=")
     value = {"true": True, "false": False}.get(value, value)
-    cls = tcfg.RenderConfig if section == "render" else tcfg.ModelConfig
-    with pytest.raises(ValueError, match=name):
-        cls(**{name: value})
-    # the JAX package accepts them
-    jcls = jcfg.RenderConfig if section == "render" else jcfg.ModelConfig
-    jcls(**{name: value})
+    tiny = tcfg.config_from_dict(dataclasses.asdict(tiny_config()))
+    part = dataclasses.replace(getattr(tiny, section), **{name: value})
+    net = LaRaNet(dataclasses.replace(tiny, **{section: part}), dtype=torch.float32,
+                  device="cpu")
+    vit, rcfg = net.img_encoder.model, net._render_cfg(64, 64, train=True)
+    assert all(blk.attn.use_flash == (override == "model.flash_attn=true")
+               for blk in vit.blocks)
+    assert rcfg.stash_carries == (override != "render.pallas_stash_carries=false")
+    policy = "dots" if override == "model.remat_policy=dots" else "full"
+    assert vit.remat_policy == net.vol_decoder.remat_policy == policy

@@ -129,7 +129,7 @@ FINE_ONLY = ("decoder.mlp_fine.", "decoder.cross_att.", "decoder.norm.")
 @pytest.fixture(scope="module")
 def tiny_net():
     cfg = config_from_dict(dataclasses.asdict(tiny_config()))
-    return cfg, LaRaNet(cfg, dtype=torch.float32)
+    return cfg, LaRaNet(cfg, dtype=torch.float32, device="cpu")
 
 
 def test_decay_mask_matches_jax(tiny_net):
@@ -152,7 +152,7 @@ def test_optimizer_matches_optax(tiny_net):
     the schedule's initial lr, the second at its peak) under clip 0.5, with
     seeded synthetic gradients; the fine-only parameters get none."""
     cfg, net = tiny_net
-    net = LaRaNet(cfg, dtype=torch.float32)
+    net = LaRaNet(cfg, dtype=torch.float32, device="cpu")
     tcfg = TrainConfig(warmup_iters=1, grad_accum=2)
     state = tstate.TrainState(net, tcfg, max_iters=10)
     sd = {k: v.detach().numpy().copy() for k, v in net.state_dict().items()}

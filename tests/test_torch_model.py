@@ -45,7 +45,8 @@ def nets():
     batch = synthetic_batch(B=1)
     params = jax.jit(lambda r: jnet.init(r, batch, with_fine=True, train=False))(
         jax.random.PRNGKey(0))
-    tnet = LaRaNet(config_from_dict(dataclasses.asdict(cfg)), dtype=torch.float32)
+    tnet = LaRaNet(config_from_dict(dataclasses.asdict(cfg)), dtype=torch.float32,
+                   device="cpu")
     tnet.load_state_dict(params_from_jax(params["params"]), strict=True)
     return cfg, jnet, params, tnet.eval()
 
@@ -147,3 +148,15 @@ def test_unported_options_raise(nets):
         tnet(batch, render_scale=0.5)
     with pytest.raises(NotImplementedError):
         tnet(batch, n_views_sel=1)
+
+
+def test_laranet_builds_on_the_card_unless_asked():
+    """LaRaNet's entry point runs on the card: without a CUDA device the
+    default raises, and device="cpu" builds on the CPU."""
+    cfg = config_from_dict(dataclasses.asdict(tiny_config()))
+    if torch.cuda.is_available():
+        assert next(LaRaNet(cfg).parameters()).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            LaRaNet(cfg)
+    assert next(LaRaNet(cfg, device="cpu").parameters()).device.type == "cpu"

@@ -11,7 +11,11 @@ vjp-by-chunk), the fine stage's grid samples and the transformers'
 attention. The largest difference seen is 8.3e-4.
 
 The loss gates are tested off (step 0) and on (step 2002) with one JAX
-compile: the step is a traced argument.
+compile: the step is a traced argument. One more compile holds the step
+with the training knobs `flash_attn=True` and `pallas_stash_carries=False`
+(JAX: Pallas flash attention and the replay blend backward, both
+interpreted, remat off on both sides since the flash interpreter's effect
+is rejected by jax.remat) to the same tolerance.
 """
 
 import dataclasses
@@ -66,10 +70,40 @@ def jax_side():
     return cfg, params, batch, results
 
 
-def torch_net(cfg, params, remat=True):
+@pytest.fixture(scope="module")
+def jax_knobs(jax_side):
+    """(knob cfg, value_and_grad at step 2002) with the JAX side's weights.
+    Only the blend's pallas_call is switched to interpret mode: JAX's flash
+    attention runs in its own TPU interpreter off the TPU."""
+    import types
+
+    import lara_tpu.ops.rasterizer.pallas_blend as pb
+
+    cfg, params, batch, _ = jax_side
+    kcfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, flash_attn=True, remat=False),
+        render=dataclasses.replace(cfg.render, pallas_stash_carries=False))
+    jnet = JaxLaRaNet(kcfg, dtype=jnp.float32)
+
+    def loss_fn(p, step):
+        out = jnet.apply(p, batch, with_fine=True, train=True)
+        return jax_compute_losses(batch, out, step)
+
+    orig = pb.pl.pallas_call
+    pl = types.SimpleNamespace(**vars(pb.pl))
+    pl.pallas_call = lambda *a, **kw: orig(*a, **{**kw, "interpret": True})
+    mp = pytest.MonkeyPatch()
+    mp.setattr(pb, "pl", pl)
+    result = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params, jnp.int32(2002))
+    mp.undo()
+    return kcfg, result
+
+
+def torch_net(cfg, params, remat=True, policy="full"):
     tcfg = config_from_dict(dataclasses.asdict(cfg))
-    tcfg = dataclasses.replace(tcfg, model=dataclasses.replace(tcfg.model, remat=remat))
-    net = LaRaNet(tcfg, dtype=torch.float32)
+    tcfg = dataclasses.replace(tcfg, model=dataclasses.replace(
+        tcfg.model, remat=remat, remat_policy=policy))
+    net = LaRaNet(tcfg, dtype=torch.float32, device="cpu")
     net.load_state_dict(params_from_jax(params["params"]), strict=True)
     return net.train()
 
@@ -82,12 +116,7 @@ def torch_grads(net, batch, step):
     return loss, stats, {n: p.grad for n, p in net.named_parameters()}
 
 
-@pytest.mark.parametrize("step", [0, 2002])
-def test_train_step_matches_jax(jax_side, step):
-    cfg, params, batch, results = jax_side
-    (want, want_stats), want_g = results[step]
-    got, stats, grads = torch_grads(torch_net(cfg, params), batch, step)
-
+def assert_step_matches(got, stats, grads, want, want_stats, want_g):
     np.testing.assert_allclose(got.item(), float(want), atol=1e-5)
     assert set(stats) == set(want_stats)
     for k, v in stats.items():
@@ -104,6 +133,37 @@ def test_train_step_matches_jax(jax_side, step):
     # every stage of the network is trained, including the fine MLP
     for prefix in ("img_encoder.", "vol_decoder.", "decoder.mlp_coarse.", "decoder.mlp_fine."):
         assert any(g.abs().max() > 0 for n, g in grads.items() if n.startswith(prefix)), prefix
+
+
+@pytest.mark.parametrize("step", [0, 2002])
+def test_train_step_matches_jax(jax_side, step):
+    cfg, params, batch, results = jax_side
+    (want, want_stats), want_g = results[step]
+    assert_step_matches(*torch_grads(torch_net(cfg, params), batch, step),
+                        want, want_stats, want_g)
+
+
+def test_train_step_with_knobs_matches_jax(jax_side, jax_knobs):
+    """flash_attn=True and pallas_stash_carries=False, remat off on both
+    sides: the knobs reach the port's modules (on the CPU each runs its
+    plain version) and the step agrees with the JAX package's."""
+    _, params, batch, _ = jax_side
+    kcfg, ((want, want_stats), want_g) = jax_knobs
+    net = torch_net(kcfg, params, remat=False)
+    assert all(blk.attn.use_flash for blk in net.img_encoder.model.blocks)
+    assert net._render_cfg(64, 64, train=True).stash_carries is False
+    assert_step_matches(*torch_grads(net, batch, 2002), want, want_stats, want_g)
+
+
+def test_remat_policy_dots_matches_full(jax_side):
+    """remat_policy changes what the backward keeps, never the math: "dots"
+    gives the loss and gradients of "full" (tests/test_model.py:240)."""
+    cfg, params, batch, _ = jax_side
+    runs = [torch_grads(torch_net(cfg, params, policy=p), batch, 2002) for p in ("dots", "full")]
+    np.testing.assert_allclose(runs[0][0].item(), runs[1][0].item(), rtol=1e-6)
+    for name, g in runs[0][2].items():
+        np.testing.assert_allclose(g.numpy(), runs[1][2][name].numpy(), rtol=1e-5, atol=1e-8,
+                                   err_msg=name)
 
 
 def test_remat_gives_the_same_gradients(jax_side):

@@ -33,12 +33,27 @@ each prints its seconds:
      with the blend swapped for the plain version; then two requests with
      `flash_attn=True` on the same weights (12 flash launches each),
      `image_fine` against the default path's;
-  7. training, reduced config (tests/test_model.py:tiny_config at 128², f32):
+  7. binning, on the `lara_workload` scene (524,288 surfels with trained
+     statistics) at the train (K 128, V 131,072) and eval (K 512,
+     V 262,144) raster configs: (a) the window kernel `tile_windows`
+     against its plain version bit for bit on the real sorted keys and
+     starts, and with every window past the keys or partly past them;
+     device ms of the kernel, the plain version and one `padded[flat]`
+     gather; (b) `bin_view` in bin_mode "sort" and "count" and pack_mode
+     "fused": counts, validity and windows equal; (c) the blend kernel on
+     the three modes' windows, accumulators bit for bit, and the blend
+     forward timed at these trained statistics; (d) one serving request
+     each with bin_mode "count" and pack_mode "fused" on the serving
+     phase's weights (16 blend launches each), `image_fine` against the
+     default request's; (e) the binning profiler
+     (`lara_tpu_torch.tools.profile_binning.run`) over 8 views, whose
+     window-kernel launches are the kernel's count on its path;
+  8. training, reduced config (tests/test_model.py:tiny_config at 128², f32):
      one fine micro-step through the kernels and one through the plain
      versions give the same loss and gradients, by default and with
      `flash_attn=True` and `pallas_stash_carries=False`; 10 optimizer steps
      on one batch lower the loss;
-  8. training, flagship `Config()` at B=3 (4+4 views at 512², bf16
+  9. training, flagship `Config()` at B=3 (4+4 views at 512², bf16
      autocast): one coarse micro-step and four fine micro-steps (two AdamW
      updates) from micro-step 2002, each with exactly its kernel launches,
      finite stats, a gradient in every stage, and parameters changed only
@@ -47,7 +62,7 @@ each prints its seconds:
      (no stash, the replay backward, the flash kernels), and one fine
      micro-step with `remat_policy="dots"` too; seconds and peak memory of
      each beside the default's;
-  9. a JSON line describing the kernels (with each one's bound at the
+  10. a JSON line describing the kernels (with each one's bound at the
      path's shapes), the `nvidia-smi` line, and as the last line
      `{"ok": true, "device": {...}}`.
 
@@ -58,7 +73,8 @@ published rates. The blend's work depends on the data, so it is counted on
 this run's windows: entry-pixel pairs of processed chunks
 Σ_t min(n_t, ndone_t·C)·256, times the operations per pair in the kernel
 sources (forward ~40 flops and one expf; the backward twice that plus ~60;
-the replay once more the forward's).
+the replay once more the forward's). The window kernel is a copy: its bytes
+are the key words its windows cover, the starts and the windows written.
 """
 
 from __future__ import annotations
@@ -81,10 +97,16 @@ from lara_tpu_torch.models import LaRaNet
 from lara_tpu_torch.models import vit
 from lara_tpu_torch.ops import _build, flash
 from lara_tpu_torch.ops.gather import window_gather
-from lara_tpu_torch.ops.rasterizer import cuda_blend
+from lara_tpu_torch.ops.rasterizer import cuda_blend, cuda_windows
 from lara_tpu_torch.ops.rasterizer.preprocess import preprocess_surfels
-from lara_tpu_torch.ops.rasterizer.tiled import bin_view
+from lara_tpu_torch.ops.rasterizer.tiled import (_pack_tile_bounds, bin_view, slot_keys,
+                                                 tile_ranges)
 from lara_tpu_torch.ops.rasterizer.types import RasterizeConfig
+from lara_tpu_torch.ops.renderer import (opacity_activation, rotation_activation,
+                                         scaling_activation)
+from lara_tpu_torch.tools import profile_binning
+from lara_tpu_torch.tools.profile_binning import queued_ms
+from lara_tpu_torch.tools.workload import lara_workload
 from lara_tpu_torch.train.loss import compute_losses
 from lara_tpu_torch.train.state import TrainState
 from lara_tpu_torch.train.step import make_eval_step, make_forward, make_train_step
@@ -230,12 +252,13 @@ def windows(scene, cfg, cam):
 
 
 def launches() -> dict:
-    return {**cuda_blend.LAUNCHES, **flash.LAUNCHES}
+    return {**cuda_blend.LAUNCHES, **flash.LAUNCHES, **cuda_windows.LAUNCHES}
 
 
 def reset_launches():
     cuda_blend.reset_launches()
     flash.reset_launches()
+    cuda_windows.reset_launches()
 
 
 def bound(nbytes: float, ops: float, peak_ops: float) -> tuple:
@@ -618,7 +641,153 @@ def slice_phase(dev) -> dict:
           f"{q999:.3e}, max {diff.max().item():.3e}")
     if not (diff.mean().item() <= SLICE_FLASH_MEAN and q999 <= SLICE_FLASH_Q999):
         raise AssertionError("slice: flash attention changes image_fine beyond the bf16 bar")
-    return {"launches": counts, "flash_launches": counts_flash}
+    # the default attention again, for the binning phase's requests
+    net.cfg = cfg
+    for blk in net.img_encoder.model.blocks:
+        blk.attn.use_flash = False
+    return {"launches": counts, "flash_launches": counts_flash,
+            "net": net, "batches": batches, "image_fine": first}
+
+
+def workload_scene(dev):
+    """`lara_workload` (trained statistics) with the renderer's activations."""
+    means, shs, op_raw, sc_raw, quats = lara_workload(N_SURFELS, 0, dev)
+    return (means, shs, opacity_activation(op_raw), scaling_activation(sc_raw),
+            rotation_activation(quats))
+
+
+def window_bytes(starts, m: int, k: int) -> int:
+    """Bytes the window extraction must move: the key words its windows
+    cover (each once: neighbouring windows overlap where a tile holds fewer
+    than k entries), the starts, and the [T, k] windows written."""
+    ends = torch.clamp(starts.long() + k, max=m)
+    prev = torch.cat([ends.new_zeros(1), torch.cummax(ends, 0).values[:-1]])
+    covered = int(torch.clamp(ends - torch.maximum(starts.long(), prev), min=0).sum())
+    return 4 * (covered + starts.numel() + starts.numel() * k)
+
+
+def windows_case(name, sorted_keys, starts, k) -> dict:
+    """`tile_windows` against its plain version, bit for bit, on the main
+    path's sorted keys and starts, with every window at the end of the keys
+    (all sentinels), and with a ragged count of windows that run partly
+    past the keys; device ms of the kernel, the plain version and the
+    one-gather library call, and the bound."""
+    m = sorted_keys.shape[0]
+    gen = torch.Generator().manual_seed(k)
+    cases = {"main path": starts,
+             "all past the keys": torch.full_like(starts, m),
+             "partly past the keys": torch.sort(
+                 m - torch.randint(0, k, (1021,), generator=gen)).values.to(starts)}
+    for case, st in cases.items():
+        got = cuda_windows.tile_windows(sorted_keys, st, k)
+        want = cuda_windows.tile_windows_reference(sorted_keys, st, k)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        print(f"[binning] {name} windows, {case}: T {st.numel()} K {k}, sentinel share "
+              f"{(want == cuda_windows.INT32_MAX).float().mean().item():.4f}, kernel equal "
+              f"to the plain version bit for bit: {same}")
+        if not same:
+            raise AssertionError(f"{name}: tile_windows differs from its plain version ({case})")
+    padded = torch.cat([sorted_keys, sorted_keys.new_full((k,), cuda_windows.INT32_MAX)])
+    flat = starts[:, None] + torch.arange(k, dtype=torch.int32, device=starts.device)
+    res = {"max_abs_err": 0.0,
+           "ms": queued_ms(lambda: cuda_windows.tile_windows(sorted_keys, starts, k)),
+           "plain_ms": queued_ms(
+               lambda: cuda_windows.tile_windows_reference(sorted_keys, starts, k)),
+           "library_ms": queued_ms(lambda: padded[flat]),
+           "launch_ms": median_ms(lambda: cuda_windows.tile_windows(sorted_keys, starts, k), 30)}
+    res["bound_ms"], res["bound_by"] = bound(window_bytes(starts, m, k), 0, F32_FLOPS)
+    print(f"[binning] {name} windows: device ms per call (queued) kernel {res['ms']:.5f} "
+          f"plain {res['plain_ms']:.5f} padded[flat] {res['library_ms']:.5f}; one call "
+          f"alone between events {res['launch_ms']:.5f}; bound {res['bound_ms']:.5f} ms "
+          f"({res['bound_by']}), kernel at {res['bound_ms'] / res['ms']:.3f} of it")
+    return res
+
+
+BIN_MODES = {"sort": {}, "count": {"bin_mode": "count"}, "fused": {"pack_mode": "fused"}}
+
+
+def binning_modes_case(name, g, cfg, scalars) -> tuple:
+    """(b) bin_view in the three modes gives the same windows; (c) the
+    blend kernel on them gives the same accumulators. Returns the sort
+    mode's entries and counts."""
+    bins, ms = {}, {}
+    for mode, kw in BIN_MODES.items():
+        cfg_m = dataclasses.replace(cfg, **kw)
+        bins[mode] = bin_view(g, cfg_m)
+        ms[mode] = median_ms(lambda c=cfg_m: bin_view(g, c), 10)
+    (_, bs), (_, bc), (_, bf) = bins["sort"], bins["count"], bins["fused"]
+    ev = bs.entry_valid
+    same = {
+        "count": all(torch.equal(a, b) for a, b in (
+            (bs.counts, bc.counts), (bs.entry_valid, bc.entry_valid),
+            (bs.order_v, bc.order_v), (bs.win_gidx[ev], bc.win_gidx[ev]))),
+        "fused": all(torch.equal(a, b) for a, b in (
+            (bs.counts, bf.counts), (bs.entry_valid, bf.entry_valid),
+            (bs.order_v[bs.win_gidx[ev]].int(), bf.win_gidx[ev])))}
+    print(f"[binning] {name} bin_view windows equal to the sort mode's: {same}; "
+          f"{int(ev.sum())} valid entries; median ms per bin_view "
+          + " ".join(f"{k}={v:.3f}" for k, v in ms.items()))
+    if not all(same.values()):
+        raise AssertionError(f"{name}: bin_view modes give different windows: {same}")
+    entries, accs = {}, {}
+    for mode, (packed, b) in bins.items():
+        entries[mode] = window_gather(packed, b.win_gidx, b.entry_valid, b.slot_pos).contiguous()
+        accs[mode] = cuda_blend.blend_fwd(entries[mode], b.counts, scalars, cfg)
+    torch.cuda.synchronize()
+    same = {m: torch.equal(accs[m], accs["sort"]) for m in ("count", "fused")}
+    print(f"[binning] {name} blend accumulators equal to the sort mode's bit for bit: {same}")
+    if not all(same.values()):
+        raise AssertionError(f"{name}: the blend differs between binning modes: {same}")
+    return entries["sort"], bs.counts
+
+
+def binning_phase(dev, serving: dict) -> dict:
+    """The window kernel, the binning modes, the blend at trained
+    statistics, serving with the binning modes, and the binning profiler."""
+    cam = camera(dev)
+    scene = workload_scene(dev)
+    scalars = torch.stack([cam.tanfovx, cam.tanfovy]).float()
+    res = {}
+    for name, budget, visible in (("train", 128, 131072), ("eval", 512, 262144)):
+        cfg = RasterizeConfig(height=H, width=W, tile=16, dup=3, tile_budget=budget,
+                              visible_budget=visible, pallas_chunk=min(64, budget))
+        g, overflow = preprocess_surfels(*scene, cam, cfg, return_overflow=True)
+        order_v = torch.argsort(torch.where(g.valid, g.depth, torch.inf), stable=True)[:visible]
+        sorted_keys = torch.sort(slot_keys(_pack_tile_bounds(g, cfg)[order_v], cfg)).values
+        starts, _ = tile_ranges(sorted_keys, cfg)
+        print(f"[binning] {name}: lara_workload {N_SURFELS} surfels, {int(g.valid.sum())} "
+              f"valid, radius_overflow_frac {overflow.item():.6f} at dup {cfg.dup}; "
+              f"M {sorted_keys.numel()} keys")
+        res[name] = windows_case(name, sorted_keys, starts, budget)
+        entries, counts = binning_modes_case(name, g, cfg, scalars)
+        res[f"blend_{name}"] = compare_case(f"trained-{name}", entries, counts, scalars, cfg,
+                                            timed=True)
+        res[f"overflow_{name}"] = overflow.item()
+
+    # (d) serving with the binning modes, on the serving phase's weights
+    net, batches, first = serving.pop("net"), serving.pop("batches"), serving.pop("image_fine")
+    base = net.cfg
+    none = {k: 0 for k in launches()}
+    for mode in ("count", "fused"):
+        net.cfg = dataclasses.replace(base, render=dataclasses.replace(
+            base.render, **BIN_MODES[mode]))
+        img, _ = serve_requests(net, batches[:1], {**none, "blend_fwd": 4 * base.n_views},
+                                f"binning-{mode}")
+        diff = (img - first).abs().max().item()
+        print(f"[binning-{mode}] max |image_fine - the sort binning's| = {diff:.3e} "
+              f"(equal: {diff == 0.0})")
+        if not diff <= SLICE_ATOL:
+            raise AssertionError(f"serving with {mode} binning differs by {diff}")
+    net.cfg = base
+    del net, batches, first
+
+    # (e) the binning profiler's whole path on the card
+    reset_launches()
+    res["tool"] = profile_binning.run(views=8, trials=1, device=dev)
+    res["tool_launches"] = launches()
+    print(f"[binning] profile_binning.run(views=8, trials=1): launches {res['tool_launches']}")
+    return res
 
 
 @contextlib.contextmanager
@@ -834,11 +1003,11 @@ def train_flagship_phase(dev, knobs: bool) -> dict:
     return res
 
 
-def kernel_records(kernel, backward, flash_res, serving, train, train_knobs) -> list:
+def kernel_records(kernel, backward, flash_res, serving, binning, train, train_knobs) -> list:
     """The kernels line: each kernel's launches on its path, its largest
     error against the plain version, its time beside the plain version's,
     the library call's (flash) and its bound, at the path's shapes."""
-    bwd, fl = backward["train"], flash_res["train"]
+    bwd, fl, win = backward["train"], flash_res["train"], binning["train"]
     src, pallas = "lara_tpu_torch/csrc/", "lara_tpu/ops/rasterizer/pallas_blend.py"
 
     def rec(name, source, replaces, n, err, ms, plain_ms, bnd, library_ms=None):
@@ -867,6 +1036,10 @@ def kernel_records(kernel, backward, flash_res, serving, train, train_knobs) -> 
         rec("flash_bwd", "flash_bwd.cu", "lara_tpu/ops/flash.py:78",
             train_knobs["launches"]["flash_bwd"], max(r["max_abs_err"] for r in flash_res.values()),
             fl["bwd_ms"], fl["bwd_plain_ms"], fl["bwd_bound"], fl["bwd_library_ms"]),
+        rec("tile_windows", "tile_windows.cu", "tools/profile_binning.py:204",
+            binning["tool_launches"]["tile_windows"],
+            max(binning[c]["max_abs_err"] for c in ("train", "eval")), win["ms"],
+            win["plain_ms"], (win["bound_ms"], win["bound_by"]), win["library_ms"]),
     ]
 
 
@@ -911,6 +1084,8 @@ def main() -> int:
     backward = phase("backward kernels (stash and replay)", backward_phase, dev)
     flash_res = phase("flash attention", flash_phase, dev)
     serving = phase("serving (default, then flash attention)", slice_phase, dev)
+    binning = phase("binning (window kernel, bin modes, profiler)", binning_phase, dev, serving)
+    torch.cuda.empty_cache()
     phase("train (reduced)", train_reduced_phase, dev, False)
     phase("train (reduced, flash + replay)", train_reduced_phase, dev, True)
     train = phase("train (flagship)", train_flagship_phase, dev, False)
@@ -922,7 +1097,7 @@ def main() -> int:
           f"{train_knobs['peak_gb']:.2f} GB; + dots {train_knobs['dots_s']:.3f} s peak "
           f"{train_knobs['dots_peak_gb']:.2f} GB")
 
-    records = kernel_records(kernel, backward, flash_res, serving, train, train_knobs)
+    records = kernel_records(kernel, backward, flash_res, serving, binning, train, train_knobs)
     for r in records:
         if r["launches"] <= 0:
             raise AssertionError(f"{r['name']} was not launched on its path")

@@ -17,20 +17,6 @@ import dataclasses
 import re
 from typing import Any, Dict, List, Optional, Tuple
 
-# Values the port accepts; any other would silently run another path than
-# the one asked for, so it raises (see ROADMAP.md): bin_mode/pack_mode are
-# TPU A/B variants of the binning that the port does not have.
-_PORTED_MODES = {"bin_mode": ("sort",), "pack_mode": ("gather",)}
-
-
-def _check_ported(cfg) -> None:
-    for name, allowed in _PORTED_MODES.items():
-        value = getattr(cfg, name)
-        if value not in allowed:
-            raise ValueError(
-                f"{name}={value!r} is not implemented by lara_tpu_torch "
-                f"(supported: {allowed})")
-
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
@@ -98,15 +84,13 @@ class RenderConfig:
     # blend kernel: entries staged per step (clamped to the tile budget)
     pallas_chunk: int = 64
     pallas_tiles_per_step: int = 4      # TPU only, unused
-    # tile-window construction: only "sort" is ported
+    # tile-window construction: "sort" or "count" (RasterizeConfig.bin_mode)
     bin_mode: str = "sort"
-    # depth-compaction data movement: only "gather" is ported
+    # depth-compaction data movement: "gather" or "fused"
+    # (RasterizeConfig.pack_mode)
     pack_mode: str = "gather"
     pallas_stash_carries: bool = True   # False: the replay backward
     pallas_cumsum: str = "shift"        # TPU only, unused
-
-    def __post_init__(self):
-        _check_ported(self)
 
 
 @dataclasses.dataclass(frozen=True)

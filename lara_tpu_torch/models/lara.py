@@ -169,7 +169,8 @@ class LaRaNet(nn.Module):
             sh_degree=self.cfg.model.sh_degree,
             visible_budget=r.visible_budget if train else r.eval_visible_budget,
             pallas_chunk=min(r.pallas_chunk, budget),
-            stash_carries=r.pallas_stash_carries)
+            stash_carries=r.pallas_stash_carries, bin_mode=r.bin_mode,
+            pack_mode=r.pack_mode)
 
     def encode_images(self, imgs: torch.Tensor, rays_down: torch.Tensor) -> torch.Tensor:
         """imgs [BV, H, W, 3], rays_down [BV, h, w, 6] (h = H/16) →

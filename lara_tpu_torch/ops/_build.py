@@ -8,7 +8,7 @@ shared headers and its flags, and bound with ctypes (no PyTorch headers, so
 a build takes seconds).
 A kernel that cannot be built raises: nothing falls back.
 
-    libs = build_library()        # {"blend_fwd": CDLL, ..., "flash_bwd": CDLL}
+    libs = build_library()        # {"blend_fwd": CDLL, ..., "tile_windows": CDLL}
 """
 
 from __future__ import annotations
@@ -42,6 +42,8 @@ _KERNELS = {
                   [_P] * 6 + [_I] * 5 + [_L] * 6 + [_F, _I, _P]),
     "flash_bwd": ("flash_bwd.cu", _COMMON, "lara_flash_bwd",
                   [_P] * 11 + [_I] * 5 + [_L] * 6 + [_F, _I, _P]),
+    "tile_windows": ("tile_windows.cu", _COMMON, "lara_tile_windows",
+                     [_P, _I, _P, _I, _I, _P, _P]),
 }
 _libs: dict = {}
 build_log = ""      # nvcc's output (registers, shared memory) of this process's builds

@@ -52,9 +52,10 @@ def rasterize_rebind(
     camera: Camera, bg: torch.Tensor, cfg: RasterizeConfig,
 ) -> RenderOutput:
     """Re-render the SAME geometry as the `rasterize_and_bin` call that made
-    `binned`, with new SH coefficients / opacities: preprocess + one pack
-    gather, then the blend through the cached tile windows. `opacities` are
+    `binned`, with new SH coefficients / opacities: preprocess + the pack
+    (one row gather, or elementwise with pack_mode "fused"), then the blend
+    through the cached tile windows. `opacities` are
     activated; entries the caller disabled must be exactly 0."""
     g = preprocess_surfels(means3d, shs, opacities, scales, rotations, camera, cfg)
-    packed = repack_from_binned(g, binned)
+    packed = repack_from_binned(g, binned, cfg)
     return blend_binned_cuda(packed, binned, camera, bg, cfg)

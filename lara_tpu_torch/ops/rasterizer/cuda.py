@@ -38,7 +38,8 @@ def blend_binned_cuda(
 ) -> RenderOutput:
     """Composite from an existing binning (packed from `bin_view` for the
     first render, or `repack_from_binned` for a re-render)."""
-    entries = window_gather(packed, binned.win_gidx, binned.entry_valid)  # [T, K, 13]
+    entries = window_gather(packed, binned.win_gidx, binned.entry_valid,
+                            binned.slot_pos)                      # [T, K, 13]
     # tan fov stays on the device: no host sync per render
     scalars = torch.stack([camera.tanfovx, camera.tanfovy]).to(torch.float32)
     out = cuda_blend.blend_tiles(entries, binned.counts, scalars, cfg)  # [T, C, P]

@@ -22,7 +22,11 @@ def preprocess_surfels(
     rotations: torch.Tensor,  # [N, 4] quaternions (w,x,y,z), any norm
     camera: Camera,
     cfg: RasterizeConfig,
-) -> ProjectedSurfels:
+    return_overflow: bool = False,
+):
+    """With return_overflow, also returns the fraction of valid surfels
+    whose unclamped footprint exceeds cfg.max_radius: those lose coverage
+    (and gradient) outside their dup×dup tile ring."""
     f32 = torch.float32
     means3d = means3d.to(f32)
     scales = scales.to(f32)
@@ -74,7 +78,8 @@ def preprocess_surfels(
             ext = torch.maximum(ext, torch.maximum(d[:, 0], d[:, 1]))
     filter_r = cut / math.sqrt(cfg.filter2d_invsq)
     # dup clamp: the fixed dup×dup tile fan-out must cover the footprint
-    radius = torch.clamp(ext + filter_r, max=cfg.max_radius)
+    radius_unclamped = ext + filter_r
+    radius = torch.clamp(radius_unclamped, max=cfg.max_radius)
 
     # view-dependent color from the direction to `campos`
     viewdir = means3d - camera.campos.to(f32)
@@ -88,7 +93,12 @@ def preprocess_surfels(
                  & (cy2d > -margin) & (cy2d < cfg.height + margin))
     valid = (z > cfg.near_cull) & on_screen & (opacities > cfg.alpha_min)
 
-    return ProjectedSurfels(
+    g = ProjectedSurfels(
         center_cam=center_cam, au=au, bv=bv, normal=normal, rgb=rgb,
         opacity=opacities.to(f32), depth=z, center2d=center2d,
         radius=radius, valid=valid)
+    if return_overflow:
+        n_valid = torch.clamp(valid.to(f32).sum(), min=1.0)
+        overflow = (valid & (radius_unclamped > cfg.max_radius)).to(f32).sum() / n_valid
+        return g, overflow
+    return g

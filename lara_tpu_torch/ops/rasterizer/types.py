@@ -33,6 +33,12 @@ class RasterizeConfig:
                  for the backward (True), or the backward replays each
                  tile's forward walk (False; RenderConfig's
                  pallas_stash_carries).
+    bin_mode:    tile-window construction, "sort" (one key sort +
+                 searchsorted) or "count" (a prefix-sum counting sort);
+                 both give the same windows.
+    pack_mode:   "gather" (pack the kept surfels' rows in depth order) or
+                 "fused" (sort binning only: the pack stays elementwise
+                 and the windows hold original surfel ids).
     """
 
     height: int = 512
@@ -50,10 +56,16 @@ class RasterizeConfig:
     dist_far: float = 100.0
     filter2d_invsq: float = 2.0
     stash_carries: bool = True
+    bin_mode: str = "sort"
+    pack_mode: str = "gather"
 
     def __post_init__(self):
         if self.height % self.tile or self.width % self.tile:
             raise ValueError("image extent must be a multiple of the tile size")
+        if self.bin_mode not in ("sort", "count"):
+            raise ValueError(f"bin_mode must be 'sort' or 'count', got {self.bin_mode!r}")
+        if self.pack_mode not in ("gather", "fused"):
+            raise ValueError(f"pack_mode must be 'gather' or 'fused', got {self.pack_mode!r}")
 
     @property
     def tiles_x(self) -> int:

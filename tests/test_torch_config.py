@@ -33,13 +33,31 @@ def test_load_config_equal(paths, overrides):
     assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
 
 
+def _tiny_net(section: str, **fields):
+    """A CPU LaRaNet of tests/test_model.py:tiny_config with `fields` set
+    in its config section `section`."""
+    from lara_tpu_torch.models import LaRaNet
+    from tests.test_model import tiny_config
+
+    tiny = tcfg.config_from_dict(dataclasses.asdict(tiny_config()))
+    part = dataclasses.replace(getattr(tiny, section), **fields)
+    return LaRaNet(dataclasses.replace(tiny, **{section: part}), dtype=torch.float32,
+                   device="cpu")
+
+
 @pytest.mark.parametrize("override", ["render.bin_mode=count", "render.pack_mode=fused"])
-def test_unported_render_modes_raise(override):
-    with pytest.raises(ValueError):
-        tcfg.load_config("configs/base.yaml", overrides=[override])
+def test_binning_modes_accepted(override):
+    """The binning's modes load in both packages with equal results and
+    reach the raster config of a LaRaNet (tiled.py:bin_view reads them)."""
+    ours = tcfg.load_config("configs/base.yaml", overrides=[override])
+    theirs = jcfg.load_config("configs/base.yaml", overrides=[override])
+    assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
     name, value = override.split(".")[1].split("=")
-    with pytest.raises(ValueError, match=name):
-        tcfg.RenderConfig(**{name: value})
+    assert getattr(ours.render, name) == value
+
+    rcfg = _tiny_net("render", **{name: value})._render_cfg(64, 64, train=True)
+    assert (rcfg.bin_mode, rcfg.pack_mode) == (
+        {"bin_mode": (value, "gather"), "pack_mode": ("sort", value)}[name])
 
 
 @pytest.mark.parametrize("override", ["render.pallas_stash_carries=false",
@@ -53,16 +71,10 @@ def test_training_knobs_accepted(override):
     theirs = jcfg.load_config("configs/base.yaml", overrides=[override])
     assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
 
-    from lara_tpu_torch.models import LaRaNet
-    from tests.test_model import tiny_config
-
     section, assign = override.split(".")
     name, value = assign.split("=")
     value = {"true": True, "false": False}.get(value, value)
-    tiny = tcfg.config_from_dict(dataclasses.asdict(tiny_config()))
-    part = dataclasses.replace(getattr(tiny, section), **{name: value})
-    net = LaRaNet(dataclasses.replace(tiny, **{section: part}), dtype=torch.float32,
-                  device="cpu")
+    net = _tiny_net(section, **{name: value})
     vit, rcfg = net.img_encoder.model, net._render_cfg(64, 64, train=True)
     assert all(blk.attn.use_flash == (override == "model.flash_attn=true")
                for blk in vit.blocks)

@@ -8,7 +8,9 @@ each prints its seconds:
   1. device: require CUDA, print `nvidia-smi` name and power limit; TF32
      off in matmuls and cuDNN convolutions;
   2. build every kernel of `lara_tpu_torch/csrc/` (one nvcc per source,
-     started together) and print each kernel's registers and spills;
+     started together) and print each kernel's registers and spills, the
+     flash kernels' dynamic shared memory and (with `cuobjdump`) their
+     HGMMA instructions;
   3. forward kernel vs plain version (`blend_tiles_reference`) on a random
      524,288-surfel scene at 512², binned at the train (budget 128) and eval
      (budget 512) raster configs, plus opaque, empty-tile and over-budget
@@ -23,10 +25,13 @@ each prints its seconds:
      kernels and of their plain versions;
   5. flash attention at the ViT's shapes [4, 1025, 12, 64] (serving) and
      [12, 1025, 12, 64] (train) in bf16, a ragged L=200 case with a
-     kv_mask, and f32 at head_dim 12 (the reduced check's ViT): output and
-     dq, dk, dv against autograd of the plain version; median ms of the
-     kernels, the plain version and `F.scaled_dot_product_attention` (timed
-     only: the port never calls it);
+     kv_mask, head_dims 16, 48, 80, 96, 112 and 128 at L=257, and f32 at
+     head_dim 12 (the reduced check's ViT), q, k, v as views of one fused
+     projection: output and dq, dk, dv against autograd of the plain
+     version and (bf16) of the blocked plain version, two backward calls
+     equal bit for bit; queued device ms of the kernels, the plain version
+     and `F.scaled_dot_product_attention` under each backend that runs
+     (timed only: the port never calls it);
   6. serving: two flagship-width requests (B=1, 4+4 views at 512², seeded
      random weights) through `make_forward`, each checked for shapes,
      finite values, coverage and exactly 16 forward launches; one request
@@ -83,14 +88,15 @@ import contextlib
 import dataclasses
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from lara_tpu_torch.config import Config, ModelConfig, RenderConfig, TrainConfig
 from lara_tpu_torch.models import LaRaNet
@@ -106,6 +112,7 @@ from lara_tpu_torch.ops.renderer import (opacity_activation, rotation_activation
                                          scaling_activation)
 from lara_tpu_torch.tools import profile_binning
 from lara_tpu_torch.tools.profile_binning import queued_ms
+from lara_tpu_torch.tools.profile_flash import sdpa_ms
 from lara_tpu_torch.tools.workload import lara_workload
 from lara_tpu_torch.train.loss import compute_losses
 from lara_tpu_torch.train.state import TrainState
@@ -140,6 +147,12 @@ CHANNELS = ["r", "g", "b", "alpha", "depth_sum", "median", "nx", "ny", "nz", "di
 # bf16 (another 2^-9): relative L2 error within 1e-2 and every element
 # within 2^-5 of the tensor's largest magnitude; in f32 within 1e-5 of it
 FLASH_BF16_REL_L2, FLASH_BF16_MAX, FLASH_F32_MAX = 1e-2, 2.0 ** -5, 1e-5
+# the bf16 kernels against the blocked plain version, which rounds P and dS
+# where the kernels do: what is left is f32 summation order (tensor cores
+# vs PyTorch's products, ~1e-6 relative) and the bf16 roundings it flips,
+# each one bf16 ulp (2^-8 relative) of one element: relative L2 within
+# 2^-9 and every element within 2^-7 of the tensor's largest magnitude
+FLASH_BLOCKED_REL_L2, FLASH_BLOCKED_MAX = 2.0 ** -9, 2.0 ** -7
 # serving image_fine with flash vs the default attention on the same
 # weights: both bf16, the default's logits are a bf16 product, the flash
 # kernel's f32; the difference passes through 12 ViT layers, the volume
@@ -291,6 +304,33 @@ def kernel_name(mangled: str) -> str:
     name = rest[m.end():m.end() + int(m.group(1))]
     t = re.match(r"IL\w(\d+)E", rest[m.end() + int(m.group(1)):])
     return f"{name}<{t.group(1)}>" if t else name
+
+
+def check_hgmma() -> None:
+    """Print each flash kernel's count of HGMMA (wgmma) instructions in the
+    SASS of the built libraries, where the toolkit has `cuobjdump`, and
+    fail if a bf16 kernel has none."""
+    tool = shutil.which("cuobjdump") or str(Path(_build._nvcc()).parent / "cuobjdump")
+    if not Path(tool).exists():
+        print("[build] no cuobjdump: HGMMA counts not read")
+        return
+    for lib in ("flash_fwd", "flash_bwd"):
+        sass = subprocess.run([tool, "-sass", _build.build_library()[lib]._name],
+                              capture_output=True, text=True, check=True).stdout
+        counts, fn = {}, None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = kernel_name(m.group(1))
+                counts[fn] = 0
+            elif fn is not None and "HGMMA" in line:
+                counts[fn] += 1
+        print(f"[build] {lib} HGMMA instructions per kernel: "
+              + ", ".join(f"{k} {v}" for k, v in counts.items()))
+        missing = [k for k, v in counts.items() if "bf16" in k and not k.startswith("rowdot")
+                   and v == 0]
+        if missing:
+            raise AssertionError(f"bf16 flash kernels without wgmma: {missing}")
 
 
 def median_ms(fn, reps):
@@ -473,79 +513,105 @@ def backward_phase(dev) -> dict:
 
 
 def flash_case(name, seed, b, l, h, hd, dtype, dev, masked=False, timed=False):
-    """The flash kernels against autograd of the plain version on seeded
-    random q, k, v and cotangent [b, l, h, hd]."""
+    """The flash kernels against autograd of the plain version and of the
+    blocked plain version on seeded random q, k, v, taken as the ViT takes
+    them (views of one fused [b, l, 3·h·hd] projection), and cotangent."""
     gen = torch.Generator().manual_seed(seed)
-    q, k, v, do = (torch.randn((b, l, h, hd), generator=gen).to(dev, dtype) for _ in range(4))
+    qkv = torch.randn((b, l, 3 * h * hd), generator=gen).to(dev, dtype)
+    q, k, v = (t.reshape(b, l, h, hd) for t in qkv.chunk(3, dim=-1))
+    do = torch.randn((b, l, h, hd), generator=gen).to(dev, dtype)
     mask = None
     if masked:
         mask = (torch.rand((b, l), generator=gen) > 0.3).to(dev)
         mask[:, 0] = True
-    qkv = [x.clone().requires_grad_(True) for x in (q, k, v)]
-    got = [flash.flash_mha(*qkv, kv_mask=mask)]
-    got += torch.autograd.grad(got[0], qkv, do)
+    qkv_leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    got = [flash.flash_mha(*qkv_leaves, kv_mask=mask)]
+    got += torch.autograd.grad(got[0], qkv_leaves, do)
     torch.cuda.synchronize()
-    ref = [x.clone().requires_grad_(True) for x in (q, k, v)]
-    want = [flash.flash_mha_reference(*ref, kv_mask=mask)]
-    want += torch.autograd.grad(want[0], ref, do, retain_graph=timed)
+    refs = [("plain", flash.flash_mha_reference)]
+    if dtype == torch.bfloat16:
+        refs.append(("blocked", flash.flash_mha_blocked_reference))
     errs = {}
-    for what, g, w in zip(("o", "dq", "dk", "dv"), got, want):
-        g, w = g.float(), w.float()
-        scale = w.abs().max().item()
-        err = (g - w).abs().max().item()
-        rel = ((g - w).norm() / w.norm()).item()
-        errs[what] = err
-        if dtype == torch.bfloat16:
-            ok = rel <= FLASH_BF16_REL_L2 and err <= FLASH_BF16_MAX * scale
-        else:
-            ok = err <= FLASH_F32_MAX * max(1.0, scale)
-        print(f"[flash] {name} {what}: max |kernel - plain| {err:.3e} (max |plain| "
-              f"{scale:.3e}), relative L2 {rel:.3e}")
-        if not ok:
-            raise AssertionError(f"flash {name}: {what} differs from the plain version")
+    for ref_name, ref_fn in refs:
+        ref = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        want = [ref_fn(*ref, kv_mask=mask)]
+        want += torch.autograd.grad(want[0], ref, do)
+        for what, g, w in zip(("o", "dq", "dk", "dv"), got, want):
+            g, w = g.float(), w.float()
+            scale = w.abs().max().item()
+            err = (g - w).abs().max().item()
+            rel = ((g - w).norm() / w.norm()).item()
+            if ref_name == "plain":
+                errs[what] = err
+            if dtype != torch.bfloat16:
+                ok = err <= FLASH_F32_MAX * max(1.0, scale)
+            elif ref_name == "plain":
+                ok = rel <= FLASH_BF16_REL_L2 and err <= FLASH_BF16_MAX * scale
+            else:
+                ok = rel <= FLASH_BLOCKED_REL_L2 and err <= FLASH_BLOCKED_MAX * scale
+            print(f"[flash] {name} {what} vs {ref_name}: max |kernel - plain| {err:.3e} (max "
+                  f"|plain| {scale:.3e}), relative L2 {rel:.3e}")
+            if not ok:
+                raise AssertionError(f"flash {name}: {what} differs from the {ref_name} version")
     res = {"max_abs_err": max(errs.values())}
-    if timed:
-        scale = hd ** -0.5
-        o, lse = flash.flash_fwd(q, k, v, mask, scale)
-        res["fwd_ms"] = median_ms(lambda: flash.flash_fwd(q, k, v, mask, scale), 20)
-        res["bwd_ms"] = median_ms(lambda: flash.flash_bwd(q, k, v, mask, o, lse, do, scale), 20)
-        with torch.no_grad():
-            res["fwd_plain_ms"] = median_ms(
-                lambda: flash.flash_mha_reference(q, k, v, kv_mask=mask), 5)
-        res["bwd_plain_ms"] = median_ms(
-            lambda: torch.autograd.grad(want[0], ref, do, retain_graph=True), 5)
-        # SDPA at the same shape, in its [b, h, l, hd] layout: the yardstick
-        sq, sk, sv = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
-        with torch.no_grad():
-            res["fwd_library_ms"] = median_ms(
-                lambda: F.scaled_dot_product_attention(sq, sk, sv), 20)
-        so = F.scaled_dot_product_attention(sq, sk, sv)
-        sdo = do.transpose(1, 2)
-        res["bwd_library_ms"] = median_ms(
-            lambda: torch.autograd.grad(so, (sq, sk, sv), sdo, retain_graph=True), 20)
-        fwd_flops = 4.0 * b * h * l * l * hd
-        io = nbytes(q, k, v, o)
-        res["fwd_bound"] = bound(io + nbytes(lse), fwd_flops, BF16_TC_FLOPS)
-        res["bwd_bound"] = bound(io + nbytes(do, lse) + 3 * nbytes(q), 2.5 * fwd_flops,
-                                 BF16_TC_FLOPS)
-        for what in ("fwd", "bwd"):
-            print(f"[flash] {name} {what}: median ms kernel {res[what + '_ms']:.4f} plain "
-                  f"{res[what + '_plain_ms']:.4f} SDPA {res[what + '_library_ms']:.4f}; bound "
-                  f"{res[what + '_bound'][0]:.4f} ms ({res[what + '_bound'][1]}), kernel at "
-                  f"{res[what + '_bound'][0] / res[what + '_ms']:.3f} of it")
+    scale = hd ** -0.5
+    o, lse = flash.flash_fwd(q, k, v, mask, scale)
+    again = [flash.flash_bwd(q, k, v, mask, o, lse, do, scale) for _ in range(2)]
+    if not all(torch.equal(x, y) for x, y in zip(*again)):
+        raise AssertionError(f"flash {name}: two backward calls differ")
+    if not timed:
+        return res
+    # queued device time (calls behind a sleep kernel), so the wrapper's
+    # host cost enters neither side
+    res["fwd_ms"] = queued_ms(lambda: flash.flash_fwd(q, k, v, mask, scale))
+    res["bwd_ms"] = queued_ms(lambda: flash.flash_bwd(q, k, v, mask, o, lse, do, scale))
+    # events around one host call, median: how the earlier WMMA kernels were timed
+    call_ms = [median_ms(lambda: flash.flash_fwd(q, k, v, mask, scale), 20),
+               median_ms(lambda: flash.flash_bwd(q, k, v, mask, o, lse, do, scale), 20)]
+    print(f"[flash] {name}: median ms around one host call, fwd {call_ms[0]:.4f} bwd "
+          f"{call_ms[1]:.4f}")
+    ref = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    with torch.no_grad():
+        res["fwd_plain_ms"] = queued_ms(
+            lambda: flash.flash_mha_reference(*ref, kv_mask=mask), 5, 3)
+    want = flash.flash_mha_reference(*ref, kv_mask=mask)
+    res["bwd_plain_ms"] = queued_ms(
+        lambda: torch.autograd.grad(want, ref, do, retain_graph=True), 5, 3)
+    sdpa = sdpa_ms(q, k, v, do)
+    res["fwd_library_ms"] = min(f for f, _ in sdpa.values())
+    res["bwd_library_ms"] = min(bw for _, bw in sdpa.values())
+    fwd_flops = 4.0 * b * h * l * l * hd
+    io = nbytes(q, k, v, o)
+    res["fwd_bound"] = bound(io + nbytes(lse), fwd_flops, BF16_TC_FLOPS)
+    res["bwd_bound"] = bound(io + nbytes(do, lse) + 3 * nbytes(q), 2.5 * fwd_flops,
+                             BF16_TC_FLOPS)
+    padded = flash.BLOCK_K * -(-l // flash.BLOCK_K)
+    print(f"[flash] {name}: padded work (64-row blocks on each axis) {padded ** 2 / l ** 2:.4f}"
+          f" of the real; two backward calls equal bit for bit")
+    for what in ("fwd", "bwd"):
+        print(f"[flash] {name} {what}: queued device ms kernel {res[what + '_ms']:.4f} plain "
+              f"{res[what + '_plain_ms']:.4f} SDPA (fastest backend) "
+              f"{res[what + '_library_ms']:.4f}; bound {res[what + '_bound'][0]:.4f} ms "
+              f"({res[what + '_bound'][1]}), kernel at "
+              f"{res[what + '_bound'][0] / res[what + '_ms']:.3f} of it")
     return res
 
 
 def flash_phase(dev) -> dict:
     """The flash kernels at the ViT's shapes (12 heads of 64, 1025 tokens),
-    a ragged masked case, and the f32 kernels at head_dim 12."""
+    a ragged masked case, every bf16 head_dim of the other template (and
+    the short ones of the first), and the f32 kernels at head_dim 12."""
     bf16 = torch.bfloat16
-    return {"train": flash_case("train", 0, 12, 1025, 12, 64, bf16, dev, timed=True),
-            "serve": flash_case("serve", 1, 4, 1025, 12, 64, bf16, dev),
-            "ragged_mask": flash_case("ragged_mask", 2, 2, 200, 12, 64, bf16, dev, masked=True),
-            "f32_hd12": flash_case("f32_hd12", 3, 2, 65, 4, 12, torch.float32, dev),
-            "f32_hd12_mask": flash_case("f32_hd12_mask", 4, 2, 200, 3, 12, torch.float32, dev,
-                                        masked=True)}
+    res = {"train": flash_case("train", 0, 12, 1025, 12, 64, bf16, dev, timed=True),
+           "serve": flash_case("serve", 1, 4, 1025, 12, 64, bf16, dev),
+           "ragged_mask": flash_case("ragged_mask", 2, 2, 200, 12, 64, bf16, dev, masked=True),
+           "f32_hd12": flash_case("f32_hd12", 3, 2, 65, 4, 12, torch.float32, dev),
+           "f32_hd12_mask": flash_case("f32_hd12_mask", 4, 2, 200, 3, 12, torch.float32, dev,
+                                       masked=True)}
+    for i, hd in enumerate((16, 48, 80, 96, 112, 128)):
+        res[f"hd{hd}"] = flash_case(f"hd{hd}", 5 + i, 2, 257, 3, hd, bf16, dev,
+                                    masked=bool(i % 2))
+    return res
 
 
 def check_outputs(out: dict, n_views: int):
@@ -1080,6 +1146,10 @@ def main() -> int:
             print(f"[build] {name}: {line.strip()}")
     print(f"[build] blend_bwd dynamic shared memory per block at chunk 64, both modes: "
           f"{4 * (19 * 64 + 64 * 256 + 8 * 19 * 64)} bytes")
+    for hd in (64, 128):
+        print(f"[build] flash bf16 dynamic shared memory per CTA at head_dim {hd}: "
+              + ", ".join(f"{k} {v} bytes" for k, v in flash.kernel_smem(hd).items()))
+    check_hgmma()
     kernel = phase("forward kernel", kernel_phase, dev)
     backward = phase("backward kernels (stash and replay)", backward_phase, dev)
     flash_res = phase("flash attention", flash_phase, dev)

@@ -14,157 +14,292 @@
 // S, the running max m and sum l and the O accumulator are f32; O is written
 // in the input dtype.
 //
-// Layout. One CTA per (sequence*head, block of 64 queries); the loop over
-// the keys walks blocks of 64 staged in shared memory, with an online
-// softmax: per key block, S = Q K^T, m_new = max(m, rowmax S),
-// P = exp(S - m_new), l = l exp(m - m_new) + rowsum P,
-// O = O exp(m - m_new) + P V, and o = O / l at the end.
-//  - bf16 (the flagship's autocast): 4 warps, each owns 16 query rows. S and
-//    P V are products on the tensor cores through WMMA (bf16 operands, f32
-//    accumulation, 16x16x16 tiles, mma.sync underneath), staged through
-//    shared memory, where two lanes per row do the row max, the exponentials
-//    and the rescaling. P is rounded to bf16 before P V (as the plain
-//    version rounds nothing, this is the one rounding the kernel adds inside
-//    a row; the bar in chip_smoke.py follows from it). head_dim a multiple
-//    of 16 up to 128, a template parameter.
-//  - f32 (the reduced check's f32 net, head_dim 12): one thread per query
-//    row, plain FMA in f32, keys in blocks of 32 broadcast from shared
-//    memory, any head_dim up to 128.
+// bf16 (the flagship's autocast), any head_dim a multiple of 16 up to 128,
+// padded to HDP = 64 or 128 columns (flash_common.cuh):
+//  - One CTA per (sequence*head, block of 128 queries): two consumer
+//    warpgroups of 64 query rows each, and one producer warpgroup that
+//    hands its registers to them (setmaxnreg: 40 and 232 per thread). One
+//    producer warp loads Q once by TMA, then walks the key blocks of 64
+//    through a ring of four stages (K and V tiles, and the block's kv_mask
+//    as a 64-bit word) guarded by full and empty mbarriers, so loads run
+//    ahead of the products.
+//  - S = Q K^T is wgmma m64n64k16 with both operands K-major in shared
+//    memory. The online softmax runs on the accumulator in registers: each
+//    thread holds 16 columns of two rows, the row max and sum are
+//    reductions in the thread and then over the quad of lanes that shares a
+//    row (__shfl_xor 1, 2). Keys past Lk get -inf and masked keys -1e9.
+//    Exponentials are exp2 of logits in base-2 units (s scale log2 e), one
+//    FFMA and one MUFU.EX2 each on a block inside Lk without a mask.
+//  - Software pipeline: key block j issues S_j = Q K_j^T and then
+//    O += P_{j-1} V_{j-1}, runs the softmax of S_j while the tensor cores
+//    take P_{j-1} V_{j-1}, and returns stage j - 1 to the producer once
+//    that is done. Both products retire within the block: ptxas follows
+//    which wgmma wait retires which product only inside one iteration, and
+//    serialises every wgmma of a loop that keeps one in flight across its
+//    back edge (warnings C7514/C7515 in the build log) or that issues one
+//    on a branch it cannot prove uniform (C7520: hence the broadcast warp
+//    index and the polling loop inside the mbarrier wait's asm). The first
+//    block is peeled (no P V yet) rather than branched on.
+//  - P is rounded to bf16 in registers and is the register A operand of
+//    O += P V (wgmma m64nHDPk16): the f32 accumulator layout of S is the A
+//    fragment layout of the next k16 slices, so no value moves between
+//    threads; V is the MN-major B operand (the transpose bit), read as TMA
+//    left it. O stays in registers, rescaled per block, and is stored from
+//    them with rows past Lq masked. Nothing but the TMA-fed operand tiles
+//    goes through shared memory. P's rounding to bf16 before P V is the
+//    one rounding the kernel adds inside a row (the bar in chip_smoke.py
+//    follows from it).
+//  - Block sizes. 128 queries share each K and V tile between two
+//    warpgroups (half the shared-memory reads per product of one); 64 keys
+//    keep S at 32 registers per thread. At L = 1025 (32^2 patches + CLS) the
+//    last query block holds one real row and the last key block one real
+//    key: a warpgroup whose 64 rows all lie past Lq skips its products, so
+//    the padded work is 1088 / 1025 on each axis (12.7 % in all) rather than
+//    1152 x 1088 / 1025^2 (19.3 %).
+// f32 (the reduced check's f32 net, head_dim 12): one thread per query row,
+// plain FMA in f32, keys in blocks of 32 broadcast from shared memory, any
+// head_dim up to 128.
 // Built without --fmad=false: nothing here decides on a threshold.
 //
 // What bounds it on this card. At the train shape (12 sequences of 1025
 // tokens, 12 heads of 64) one layer's forward is 4 * 1025^2 * 64 * 12 * 12
 // = 3.87e10 flops: 39 us at 989 TFLOP/s (bf16 dense), against 23 us for the
-// 75.6 MB of q, k, v and o at 3.35 TB/s, so it is compute-bound. WMMA
-// through mma.sync reaches a fraction of what wgmma would; wgmma, TMA and
-// warp specialisation are later work.
+// 75.6 MB of q, k, v and o at 3.35 TB/s, so it is compute-bound: wgmma is
+// the only way to the tensor cores' full rate, and TMA keeps the loads off
+// the consumers' instruction stream.
 
-#include <mma.h>
+#include <type_traits>
 
 #include "flash_common.cuh"
 
 namespace {
 
-using namespace nvcuda;
-using flash::kBlock;
-using flash::kThreads;
 using flash::Problem;
 using bf16 = __nv_bfloat16;
 
-template <int HD>
-struct TileLd {
-  static constexpr int kK = HD + 8;                       // bf16 [64][HD] tiles
-  static constexpr int kP = kBlock + 8;                   // bf16 [16][64] per warp
-  static constexpr int kF = (HD > kBlock ? HD : kBlock) + 4;  // f32 [16][.] per warp
-  static constexpr size_t kSmem = sizeof(bf16) * 3 * kBlock * kK
-                                  + sizeof(float) * flash::kWarps * 16 * kF
-                                  + sizeof(bf16) * flash::kWarps * 16 * kP;
+template <int HDP>
+struct FwdCfg {
+  static constexpr int kBQ = 128, kBK = 64, kStages = 4;
+  static constexpr int kThreads = 3 * 128;  // two consumer warpgroups, one producer warpgroup
+  static constexpr int kQBytes = HDP / flash::kPanel * kBQ * flash::kPanelBytes;
+  static constexpr int kKBytes = HDP / flash::kPanel * kBK * flash::kPanelBytes;  // K or V
+  static constexpr int kKOff = kQBytes;                                  // stage s: K, then V
+  static constexpr int kBarOff = kKOff + kStages * 2 * kKBytes;
+  // Q barrier, full[kStages], empty[kStages], mask word[kStages]
+  static constexpr size_t kSmem = kBarOff + 8 * (1 + 3 * kStages) + 1024;
 };
 
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
-fwd_bf16(Problem p, bf16* __restrict__ o, float* __restrict__ lse) {
-  using Ld = TileLd<HD>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + kBlock * Ld::kK;
-  bf16* sV = sK + kBlock * Ld::kK;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* sF = reinterpret_cast<float*>(sV + kBlock * Ld::kK) + warp * 16 * Ld::kF;
-  bf16* sP = reinterpret_cast<bf16*>(reinterpret_cast<float*>(sV + kBlock * Ld::kK)
-                                     + flash::kWarps * 16 * Ld::kF) + warp * 16 * Ld::kP;
+template <int HDP>
+__global__ void __launch_bounds__(FwdCfg<HDP>::kThreads, 1)
+fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+         const __grid_constant__ CUtensorMap tv, Problem p, bf16* __restrict__ o,
+         float* __restrict__ lse) {
+  using C = FwdCfg<HDP>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = flash::smem_base(smem_raw);
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(smem + C::kBarOff);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + C::kStages;
+  uint64_t* mask_bits = empty + C::kStages;
 
   const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
-  const int q0 = blockIdx.x * kBlock;
-  const auto* q = static_cast<const bf16*>(p.q);
-  const auto* k = static_cast<const bf16*>(p.k);
-  const auto* v = static_cast<const bf16*>(p.v);
-  flash::stage_tile<HD>(sQ, Ld::kK, q, p.q_sb, p.q_sl, b, h, q0, p.Lq);
+  const int q0 = blockIdx.x * C::kBQ;
+  const int nblk = (p.Lk + C::kBK - 1) / C::kBK;
+  const int warp = flash::warp_index(), lane = threadIdx.x % 32;
 
-  // two lanes per row: row r, columns [half * 32, half * 32 + 32) of S and
-  // [half * HD / 2, (half + 1) * HD / 2) of O
-  const int r = lane >> 1, half = lane & 1;
-  constexpr int kOc = HD / 2;
-  float acc[kOc];
-#pragma unroll
-  for (int d = 0; d < kOc; ++d) acc[d] = 0.0f;
-  float m_run = -CUDART_INF_F, l_run = 0.0f;
-
-  for (int j0 = 0; j0 < p.Lk; j0 += kBlock) {
-    __syncthreads();  // the previous block's K and V are no longer read
-    flash::stage_tile<HD>(sK, Ld::kK, k, p.k_sb, p.k_sl, b, h, j0, p.Lk);
-    flash::stage_tile<HD>(sV, Ld::kK, v, p.v_sb, p.v_sl, b, h, j0, p.Lk);
-    __syncthreads();
-
-    // S_w [16 x 64] = Q_w K^T
-    for (int n = 0; n < kBlock / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> s;
-      wmma::fill_fragment(s, 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bt;
-        wmma::load_matrix_sync(a, sQ + warp * 16 * Ld::kK + kk * 16, Ld::kK);
-        wmma::load_matrix_sync(bt, sK + n * 16 * Ld::kK + kk * 16, Ld::kK);
-        wmma::mma_sync(s, a, bt, s);
-      }
-      wmma::store_matrix_sync(sF + n * 16, s, Ld::kF, wmma::mem_row_major);
+  if (threadIdx.x == 0) {
+    flash::mbar_init(qbar, 1);
+    for (int s = 0; s < C::kStages; ++s) {
+      flash::mbar_init(&full[s], 1);
+      flash::mbar_init(&empty[s], 8);  // one arrival per consumer warp
     }
-    __syncwarp();
-
-    // online softmax of the row: logits, max, P (bf16 into shared memory)
-    float sv[32];
-    float mx = -CUDART_INF_F;
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const int col = half * 32 + c;
-      sv[c] = flash::logit(p, b, j0 + col, sF[r * Ld::kF + col]);
-      mx = fmaxf(mx, sv[c]);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    // key 0 is real and lies in the first block, so m_new is finite
-    const float m_new = fmaxf(m_run, mx);
-    const float corr = __expf(m_run - m_new);
-    float rs = 0.0f;
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const float pv = __expf(sv[c] - m_new);
-      rs += pv;
-      sP[r * Ld::kP + half * 32 + c] = __float2bfloat16(pv);
-    }
-    rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-    l_run = l_run * corr + rs;
-    m_run = m_new;
-    __syncwarp();  // S read, P written: sF takes P V next
-
-    // P V [16 x HD] on the tensor cores, added to the rescaled O
-    for (int n = 0; n < HD / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> pv;
-      wmma::fill_fragment(pv, 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < kBlock / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
-        wmma::load_matrix_sync(a, sP + kk * 16, Ld::kP);
-        wmma::load_matrix_sync(bv, sV + kk * 16 * Ld::kK + n * 16, Ld::kK);
-        wmma::mma_sync(pv, a, bv, pv);
-      }
-      wmma::store_matrix_sync(sF + n * 16, pv, Ld::kF, wmma::mem_row_major);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int d = 0; d < kOc; ++d)
-      acc[d] = acc[d] * corr + sF[r * Ld::kF + half * kOc + d];
-    __syncwarp();  // sF is overwritten by the next block's S
+    flash::mbar_fence_init();
   }
+  __syncthreads();
 
-  const int i = q0 + warp * 16 + r;
-  if (i < p.Lq) {
-    const float inv_l = 1.0f / l_run;
-    bf16* orow = o + ((size_t)(b * p.Lq + i) * p.H + h) * HD + half * kOc;
+  if (warp >= 8) {
+    // producer warpgroup; its first warp loads Q once, then K, V and the
+    // mask word of every key block
+    flash::producer_regs();
+    if (warp == 8) {
+      if (lane == 0) {
+        flash::mbar_expect_tx(qbar, C::kQBytes);
+        flash::tma_tile<HDP>(smem, &tq, qbar, C::kBQ, h, q0, b);
+      }
+      for (int j = 0; j < nblk; ++j) {
+        const int s = j % C::kStages;
+        if (j >= C::kStages) flash::mbar_wait(&empty[s], ((j / C::kStages) - 1) & 1);
+        const int k0 = j * C::kBK;
+        uint64_t bits = ~0ull;
+        if (p.kv_mask != nullptr) {
+          const unsigned char* m = p.kv_mask + (size_t)b * p.Lk;
+          const unsigned lo =
+              __ballot_sync(0xffffffffu, k0 + lane < p.Lk && m[k0 + lane] != 0);
+          const unsigned hi =
+              __ballot_sync(0xffffffffu, k0 + 32 + lane < p.Lk && m[k0 + 32 + lane] != 0);
+          bits = (uint64_t)lo | ((uint64_t)hi << 32);
+        }
+        if (lane == 0) {
+          mask_bits[s] = bits;
+          unsigned char* st = smem + C::kKOff + s * 2 * C::kKBytes;
+          flash::mbar_expect_tx(&full[s], 2 * C::kKBytes);
+          flash::tma_tile<HDP>(st, &tk, &full[s], C::kBK, h, k0, b);
+          flash::tma_tile<HDP>(st + C::kKBytes, &tv, &full[s], C::kBK, h, k0, b);
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63
+    flash::consumer_regs();
+    const int wg = warp / 4;
+    const int r_lo = q0 + wg * 64 + (warp % 4) * 16 + lane / 4;  // and r_lo + 8
+    const float c2 = p.scale * flash::kLog2e;
+    const uint32_t q_tile = flash::smem_u32(smem) + wg * 64 * flash::kPanelBytes;
+    const uint32_t stages = flash::smem_u32(smem + C::kKOff);
+
+    if (q0 + wg * 64 >= p.Lq) {
+      // every row of this warpgroup lies past Lq: release the stages only
+      for (int j = 0; j < nblk; ++j) {
+        flash::mbar_wait(&full[j % C::kStages], (j / C::kStages) & 1);
+        if (lane == 0) flash::mbar_arrive(&empty[j % C::kStages]);
+      }
+      return;
+    }
+
+    float acc[HDP / 2], sc[32];
+    uint32_t pa[16];
 #pragma unroll
-    for (int d = 0; d < kOc; ++d) orow[d] = __float2bfloat16(acc[d] * inv_l);
-    if (half == 0) lse[(size_t)bh * p.Lq + i] = m_run + logf(l_run);
+    for (int i = 0; i < HDP / 2; ++i) acc[i] = 0.0f;
+    float m_lo = -CUDART_INF_F, m_hi = -CUDART_INF_F, l_lo = 0.0f, l_hi = 0.0f;
+
+    auto issue_s = [&](int j) {
+      const uint32_t k_tile = stages + (j % C::kStages) * 2 * C::kKBytes;
+#pragma unroll
+      for (int kk = 0; kk < HDP / 16; ++kk)
+        flash::SS<64>::mma(sc, flash::desc_k(q_tile, C::kBQ, kk),
+                           flash::desc_k(k_tile, C::kBK, kk), kk > 0);
+      flash::wg_commit();
+    };
+    auto issue_pv = [&](int j) {
+      const uint32_t v_tile = stages + (j % C::kStages) * 2 * C::kKBytes + C::kKBytes;
+#pragma unroll
+      for (int t = 0; t < C::kBK / 16; ++t)
+        flash::RS<HDP>::mma(acc, pa + 4 * t, flash::desc_mn(v_tile, C::kBK, t));
+      flash::wg_commit();
+    };
+    // the online softmax of S_j in sc: P_j (f32) in sc, m and l updated;
+    // returns the factors that take O from the old maxima to the new
+    auto softmax = [&](float (&sc)[32], int j, float& corr_lo, float& corr_hi) {
+      // logits in base-2 units, masked; the row max over the quad. A block
+      // inside Lk without a mask takes the plain path: the max of the raw
+      // products, then 2^(s c2 - m) as one FFMA and one MUFU.EX2.
+      const uint64_t bits = mask_bits[j % C::kStages];
+      const int kbase = j * C::kBK;
+      const bool plain = bits == ~0ull && kbase + C::kBK <= p.Lk && c2 > 0.0f;
+      float mx_lo = -CUDART_INF_F, mx_hi = -CUDART_INF_F;
+      if (plain) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          mx_lo = fmaxf(mx_lo, fmaxf(sc[4 * i], sc[4 * i + 1]));
+          mx_hi = fmaxf(mx_hi, fmaxf(sc[4 * i + 2], sc[4 * i + 3]));
+        }
+        mx_lo *= c2;
+        mx_hi *= c2;
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = flash::acc_col(i, e, lane);
+            const bool past = kbase + col >= p.Lk, on = (bits >> col) & 1;
+            float& x0 = sc[4 * i + e];
+            float& x1 = sc[4 * i + 2 + e];
+            x0 = past ? -CUDART_INF_F : on ? x0 * c2 : flash::kMasked2;
+            x1 = past ? -CUDART_INF_F : on ? x1 * c2 : flash::kMasked2;
+            mx_lo = fmaxf(mx_lo, x0);
+            mx_hi = fmaxf(mx_hi, x1);
+          }
+        }
+      }
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+        mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+      }
+      // key kbase is real, so the new maxima are finite
+      const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
+      corr_lo = flash::ex2(m_lo - mn_lo);
+      corr_hi = flash::ex2(m_hi - mn_hi);
+      m_lo = mn_lo;
+      m_hi = mn_hi;
+      const float mul = plain ? c2 : 1.0f;
+      float sum_lo = 0.0f, sum_hi = 0.0f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          sc[4 * i + e] = flash::ex2(fmaf(sc[4 * i + e], mul, -mn_lo));
+          sc[4 * i + 2 + e] = flash::ex2(fmaf(sc[4 * i + 2 + e], mul, -mn_hi));
+          sum_lo += sc[4 * i + e];
+          sum_hi += sc[4 * i + 2 + e];
+        }
+      }
+      // this thread's share of the row sums; the quad adds them at the end
+      l_lo = l_lo * corr_lo + sum_lo;
+      l_hi = l_hi * corr_hi + sum_hi;
+    };
+    // key block j: issue S_j = Q K_j^T and then O += P_{j-1} V_{j-1}, run
+    // the softmax of S_j while the tensor cores take P_{j-1} V_{j-1}, and
+    // retire both before the next block, so no product is in flight across
+    // the loop's back edge (the compiler follows the waits only within it)
+    auto step = [&](int j, auto first) {
+      constexpr bool kFirst = decltype(first)::value;
+      flash::mbar_wait(&full[j % C::kStages], (j / C::kStages) & 1);
+      flash::wg_fence();
+      issue_s(j);
+      if constexpr (!kFirst) issue_pv(j - 1);
+      if constexpr (kFirst) flash::wg_wait<0>();
+      else flash::wg_wait<1>();  // S_j
+      flash::fence_acc(sc);
+      float corr_lo, corr_hi;
+      softmax(sc, j, corr_lo, corr_hi);
+      if constexpr (!kFirst) {
+        // P_{j-1} V_{j-1} done: O and P_{j-1}'s registers are free, and
+        // stage j - 1 goes back to the producer
+        flash::wg_wait<0>();
+        flash::fence_acc(acc);
+        flash::fence_acc(sc);
+        if (lane == 0) flash::mbar_arrive(&empty[(j - 1) % C::kStages]);
+#pragma unroll
+        for (int i = 0; i < HDP / 8; ++i) {
+          acc[4 * i] *= corr_lo;
+          acc[4 * i + 1] *= corr_lo;
+          acc[4 * i + 2] *= corr_hi;
+          acc[4 * i + 3] *= corr_hi;
+        }
+      }
+      flash::acc_to_a(sc, pa);
+    };
+
+    flash::mbar_wait(qbar, 0);
+    step(0, std::true_type{});
+    for (int j = 1; j < nblk; ++j) step(j, std::false_type{});
+    flash::wg_fence();
+    issue_pv(nblk - 1);
+    flash::wg_wait<0>();
+    flash::fence_acc(acc);
+
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+      l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+    }
+    flash::store_rows<HDP>(acc, 1.0f / l_lo, 1.0f / l_hi, o, b, h, p.H, p.Lq, p.hd, r_lo,
+                           lane);
+    if ((lane & 3) == 0) {
+      if (r_lo < p.Lq) lse[(size_t)bh * p.Lq + r_lo] = m_lo * flash::kLn2 + logf(l_lo);
+      if (r_lo + 8 < p.Lq) lse[(size_t)bh * p.Lq + r_lo + 8] = m_hi * flash::kLn2 + logf(l_hi);
+    }
   }
 }
 
@@ -230,22 +365,25 @@ fwd_f32(Problem p, float* __restrict__ o, float* __restrict__ lse) {
   }
 }
 
-template <int HD>
+template <int HDP>
 int launch_bf16(const Problem& p, void* o, float* lse, cudaStream_t s) {
-  const size_t smem = TileLd<HD>::kSmem;
-  cudaError_t err = cudaFuncSetAttribute(fwd_bf16<HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((p.Lq + kBlock - 1) / kBlock, p.B * p.H);
-  fwd_bf16<HD><<<grid, kThreads, smem, s>>>(p, static_cast<bf16*>(o), lse);
-  return static_cast<int>(cudaGetLastError());
+  using C = FwdCfg<HDP>;
+  CUtensorMap tq, tk, tv;
+  int err = flash::make_map(&tq, p.q, p.B, p.Lq, p.H, p.hd, p.q_sb, p.q_sl, C::kBQ);
+  if (err == 0) err = flash::make_map(&tk, p.k, p.B, p.Lk, p.H, p.hd, p.k_sb, p.k_sl, C::kBK);
+  if (err == 0) err = flash::make_map(&tv, p.v, p.B, p.Lk, p.H, p.hd, p.v_sb, p.v_sl, C::kBK);
+  if (err != 0) return err;
+  dim3 grid((p.Lq + C::kBQ - 1) / C::kBQ, p.B * p.H);
+  return flash::launch(fwd_bf16<HDP>, grid, C::kThreads, C::kSmem, s, tq, tk, tv, p,
+                       static_cast<bf16*>(o), lse);
 }
 
 }  // namespace
 
 // q, k, v [B, L, H, hd] of one dtype (bf16: is_bf16 = 1, else f32), the
 // head at stride hd and the dimension at stride 1, batch and sequence
-// strides given in elements; kv_mask uint8 [B, Lk] or null; o contiguous
+// strides given in elements (for bf16 multiples of 8, the base 16-byte
+// aligned: TMA's terms); kv_mask uint8 [B, Lk] or null; o contiguous
 // [B, Lq, H, hd] of the same dtype; lse f32 [B*H, Lq]. bf16 takes head_dim
 // 16, 32, ..., 128, f32 any head_dim up to 128.
 extern "C" int lara_flash_fwd(const void* q, const void* k, const void* v,
@@ -259,23 +397,15 @@ extern "C" int lara_flash_fwd(const void* q, const void* k, const void* v,
   if (Lq <= 0 || Lk <= 0 || hd <= 0 || hd > flash::kMaxHd)
     return static_cast<int>(cudaErrorInvalidValue);
   if (!is_bf16) {
-    const size_t smem = f32_smem(hd);
-    cudaError_t err = cudaFuncSetAttribute(fwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
     dim3 grid((Lq + kF32Rows - 1) / kF32Rows, B * H);
-    fwd_f32<<<grid, kF32Rows, smem, s>>>(p, static_cast<float*>(o), lse);
-    return static_cast<int>(cudaGetLastError());
+    return flash::launch(fwd_f32, grid, kF32Rows, f32_smem(hd), s, p, static_cast<float*>(o),
+                         lse);
   }
-  switch (hd) {
-    case 16: return launch_bf16<16>(p, o, lse, s);
-    case 32: return launch_bf16<32>(p, o, lse, s);
-    case 48: return launch_bf16<48>(p, o, lse, s);
-    case 64: return launch_bf16<64>(p, o, lse, s);
-    case 80: return launch_bf16<80>(p, o, lse, s);
-    case 96: return launch_bf16<96>(p, o, lse, s);
-    case 112: return launch_bf16<112>(p, o, lse, s);
-    case 128: return launch_bf16<128>(p, o, lse, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (hd % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return hd <= 64 ? launch_bf16<64>(p, o, lse, s) : launch_bf16<128>(p, o, lse, s);
+}
+
+// Dynamic shared memory per CTA of the bf16 forward kernel at head_dim hd.
+extern "C" int lara_flash_fwd_smem(int hd) {
+  return static_cast<int>(hd <= 64 ? FwdCfg<64>::kSmem : FwdCfg<128>::kSmem);
 }

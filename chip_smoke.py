@@ -8,21 +8,24 @@ each prints its seconds:
   1. device: require CUDA, print `nvidia-smi` name and power limit; TF32
      off in matmuls and cuDNN convolutions;
   2. build every kernel of `lara_tpu_torch/csrc/` (one nvcc per source,
-     started together) and print each kernel's registers and spills, the
-     flash kernels' dynamic shared memory and (with `cuobjdump`) their
-     HGMMA instructions;
+     started together) and print each kernel's registers and spills (from
+     the build logs kept beside the libraries), the blend kernels' shared
+     memory and blocks per SM, the flash kernels' dynamic shared memory and
+     (with `cuobjdump`) their HGMMA instructions; fail where ptxas
+     serialised a wgmma;
   3. forward kernel vs plain version (`blend_tiles_reference`) on a random
      524,288-surfel scene at 512², binned at the train (budget 128) and eval
      (budget 512) raster configs, plus opaque, empty-tile and over-budget
-     cases; max error per channel and median ms per call of both;
+     cases; max error per channel and queued device ms per call of both;
   4. backward: the stash forward and `blend_bwd` at the train raster config
      (random scene, over-budget, opaque, empty tiles) with a seeded random
      cotangent, against autograd of the plain version: processed-chunk
      counts equal, stashed carries, per-column gradient error, the stash
      forward's accumulators bit for bit those of the plain forward kernel;
      and `blend_bwd_replay` on the same inputs: replayed carries, ndone and
-     gradients bit for bit those of the stash path; median ms of the
-     kernels and of their plain versions;
+     gradients bit for bit those of the stash path; two backward calls
+     equal bit for bit; queued device ms of the kernels and of their plain
+     versions;
   5. flash attention at the ViT's shapes [4, 1025, 12, 64] (serving) and
      [12, 1025, 12, 64] (train) in bf16, a ragged L=200 case with a
      kv_mask, head_dims 16, 48, 80, 96, 112 and 128 at L=257, and f32 at
@@ -291,21 +294,6 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def kernel_name(mangled: str) -> str:
-    """`blend_bwd_kernel<1>` from the mangled name of a kernel in an
-    anonymous namespace, as ptxas prints it."""
-    m = re.match(r"_ZN(\d+)", mangled)
-    if not m:
-        return mangled
-    rest = mangled[m.end() + int(m.group(1)):]
-    m = re.match(r"(\d+)", rest)
-    if not m:
-        return mangled
-    name = rest[m.end():m.end() + int(m.group(1))]
-    t = re.match(r"IL\w(\d+)E", rest[m.end() + int(m.group(1)):])
-    return f"{name}<{t.group(1)}>" if t else name
-
-
 def check_hgmma() -> None:
     """Print each flash kernel's count of HGMMA (wgmma) instructions in the
     SASS of the built libraries, where the toolkit has `cuobjdump`, and
@@ -321,7 +309,7 @@ def check_hgmma() -> None:
         for line in sass.splitlines():
             m = re.search(r"Function : (\S+)", line)
             if m:
-                fn = kernel_name(m.group(1))
+                fn = _build.kernel_name(m.group(1))
                 counts[fn] = 0
             elif fn is not None and "HGMMA" in line:
                 counts[fn] += 1
@@ -331,6 +319,43 @@ def check_hgmma() -> None:
                    and v == 0]
         if missing:
             raise AssertionError(f"bf16 flash kernels without wgmma: {missing}")
+
+
+def build_phase_report() -> None:
+    """Print every kernel's registers and spills from the build logs (kept
+    beside the libraries, so a cached build prints them too), the blend
+    kernels' shared memory and blocks per SM at the path's chunk, and the
+    flash kernels' shared memory; fail if ptxas serialised a wgmma."""
+    resources = _build.kernel_resources(_build.build_log)
+    if not resources:
+        raise AssertionError("the build logs name no kernel")
+    for name, r in resources.items():
+        print(f"[build] {name}: {r['registers']} registers, spill stores "
+              f"{r['spill_stores']} B, spill loads {r['spill_loads']} B")
+    for lib, (threads, smem, regs, blocks) in blend_occupancy(resources, 64).items():
+        print(f"[build] {lib}: {threads} threads, {smem} B dynamic shared memory per block "
+              f"at chunk 64, {regs} registers: {blocks} blocks per SM")
+    for hd in (64, 128):
+        print(f"[build] flash bf16 dynamic shared memory per CTA at head_dim {hd}: "
+              + ", ".join(f"{k} {v} bytes" for k, v in flash.kernel_smem(hd).items()))
+    serialised = _build.serialised_wgmma(_build.build_log)
+    if serialised:
+        raise AssertionError(f"ptxas serialised the wgmma of {serialised}")
+    print("[build] no wgmma serialised (ptxas C7514 / C7515 / C7519 / C7520)")
+
+
+def blend_occupancy(resources: dict, chunk: int) -> dict:
+    """{kernel: (threads, shared memory bytes, registers, blocks per SM)}
+    of each blend kernel at `chunk`, its registers from the build log."""
+    smem = cuda_blend.kernel_smem(chunk)
+    out = {}
+    for name, r in resources.items():
+        lib = name.split("_kernel")[0]
+        if lib in smem:
+            threads = cuda_blend.THREADS[lib]
+            out[name] = (threads, smem[lib], r["registers"],
+                         _build.blocks_per_sm(r["registers"], smem[lib], threads))
+    return out
 
 
 def median_ms(fn, reps):
@@ -366,14 +391,16 @@ def compare_case(name, entries, counts, scalars, cfg, timed=False):
         raise AssertionError(f"{name}: median differs on {flips:.2%} of pixels")
     res = {"max_abs_err": max(e for c, e in enumerate(err) if c != 5)}
     if timed:
-        res["ms"] = median_ms(lambda: cuda_blend.blend_tiles(entries, counts, scalars, cfg), 30)
-        res["plain_ms"] = median_ms(
-            lambda: cuda_blend.blend_tiles_reference(entries, counts, scalars, cfg), 5)
+        # queued device time (calls behind a sleep kernel): the wrapper's
+        # host cost enters neither side
+        res["ms"] = queued_ms(lambda: cuda_blend.blend_tiles(entries, counts, scalars, cfg))
+        res["plain_ms"] = queued_ms(
+            lambda: cuda_blend.blend_tiles_reference(entries, counts, scalars, cfg), 5, 3)
         ndone = cuda_blend.blend_fwd(entries, counts, scalars, cfg, stash=True)[2]
         pairs = blend_pairs(counts, ndone, cfg)
         res["bound_ms"], res["bound_by"] = bound(
             nbytes(entries, counts, scalars, got), BLEND_OPS["fwd"] * pairs, F32_FLOPS)
-        print(f"[kernel] {name}: median ms per call kernel {res['ms']:.4f} "
+        print(f"[kernel] {name}: queued device ms per call kernel {res['ms']:.4f} "
               f"plain {res['plain_ms']:.4f}; {pairs} processed entry-pixels, bound "
               f"{res['bound_ms']:.4f} ms ({res['bound_by']}), kernel at "
               f"{res['bound_ms'] / res['ms']:.3f} of it")
@@ -414,9 +441,12 @@ def backward_case(name, entries, counts, scalars, cfg, seed, timed=False):
     out_s, carries, ndone = cuda_blend.blend_fwd(entries, counts, scalars, cfg, stash=True)
     out = cuda_blend.blend_fwd(entries, counts, scalars, cfg)
     grad = cuda_blend.blend_bwd(entries, counts, scalars, carries, ndone, cot, cfg)
+    again = cuda_blend.blend_bwd(entries, counts, scalars, carries, ndone, cot, cfg)
     torch.cuda.synchronize()
     if not torch.equal(out_s, out):
         raise AssertionError(f"{name}: the stash forward's accumulators differ from the forward's")
+    if not torch.equal(grad, again):
+        raise AssertionError(f"{name}: two backward calls differ")
 
     e = entries.clone().requires_grad_(True)
     want, carries_p, ndone_p = cuda_blend.blend_tiles_reference(
@@ -471,24 +501,24 @@ def backward_case(name, entries, counts, scalars, cfg, seed, timed=False):
         raise AssertionError(f"{name}: the replay backward differs from the stash path: {same}")
     if timed:
         pairs = blend_pairs(counts, ndone, cfg)
-        res["bwd_ms"] = median_ms(lambda: cuda_blend.blend_bwd(
-            entries, counts, scalars, carries, ndone, cot, cfg), 30)
-        res["replay_ms"] = median_ms(lambda: cuda_blend.blend_bwd_replay(
-            entries, counts, scalars, cot, cfg), 30)
-        res["bwd_plain_ms"] = median_ms(
-            lambda: torch.autograd.grad(want, e, cot, retain_graph=True), 5)
-        res["fwd_stash_ms"] = median_ms(lambda: cuda_blend.blend_fwd(
-            entries, counts, scalars, cfg, stash=True), 30)
+        res["bwd_ms"] = queued_ms(lambda: cuda_blend.blend_bwd(
+            entries, counts, scalars, carries, ndone, cot, cfg))
+        res["replay_ms"] = queued_ms(lambda: cuda_blend.blend_bwd_replay(
+            entries, counts, scalars, cot, cfg))
+        res["bwd_plain_ms"] = queued_ms(
+            lambda: torch.autograd.grad(want, e, cot, retain_graph=True), 5, 3)
+        res["fwd_stash_ms"] = queued_ms(lambda: cuda_blend.blend_fwd(
+            entries, counts, scalars, cfg, stash=True))
         with torch.enable_grad():
-            res["fwd_stash_plain_ms"] = median_ms(lambda: cuda_blend.blend_tiles_reference(
-                e, counts, scalars, cfg), 5)
+            res["fwd_stash_plain_ms"] = queued_ms(lambda: cuda_blend.blend_tiles_reference(
+                e, counts, scalars, cfg), 5, 3)
         res["bwd_bound"] = bound(nbytes(entries, counts, scalars, carries, ndone, cot, grad),
                                  BLEND_OPS["bwd"] * pairs, F32_FLOPS)
         res["replay_bound"] = bound(nbytes(entries, counts, scalars, cot, grad),
                                     BLEND_OPS["replay"] * pairs, F32_FLOPS)
         res["fwd_stash_bound"] = bound(nbytes(entries, counts, scalars, out_s, carries, ndone),
                                        BLEND_OPS["fwd"] * pairs, F32_FLOPS)
-        print(f"[backward] {name}: median ms per call: backward kernel {res['bwd_ms']:.4f} "
+        print(f"[backward] {name}: queued device ms per call: backward kernel {res['bwd_ms']:.4f} "
               f"replay backward kernel {res['replay_ms']:.4f} "
               f"plain autograd backward {res['bwd_plain_ms']:.4f}; stash forward kernel "
               f"{res['fwd_stash_ms']:.4f} plain forward under autograd "
@@ -1135,20 +1165,7 @@ def main() -> int:
         return res
 
     phase("build", _build.build_library)
-    name = ""
-    for line in _build.build_log.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            name = kernel_name(m.group(1))
-        elif "Used" in line and "registers" in line:
-            print(f"[build] {name}: {line.split(':', 1)[1].strip()}")
-        elif "spill" in line and not line.strip().startswith("0 bytes stack"):
-            print(f"[build] {name}: {line.strip()}")
-    print(f"[build] blend_bwd dynamic shared memory per block at chunk 64, both modes: "
-          f"{4 * (19 * 64 + 64 * 256 + 8 * 19 * 64)} bytes")
-    for hd in (64, 128):
-        print(f"[build] flash bf16 dynamic shared memory per CTA at head_dim {hd}: "
-              + ", ".join(f"{k} {v} bytes" for k, v in flash.kernel_smem(hd).items()))
+    build_phase_report()
     check_hgmma()
     kernel = phase("forward kernel", kernel_phase, dev)
     backward = phase("backward kernels (stash and replay)", backward_phase, dev)

@@ -45,21 +45,61 @@
 // (with the cz_safe guard), and the normal's normalisation and its flip
 // toward the camera into the 13 columns of the row.
 //
-// Precision. T_k is not recovered by dividing by (1 - alpha), which loses up
-// to 100x at alpha = 0.99: each chunk is first walked forward from its
-// stashed carry-in, and every T_k is kept in shared memory ([chunk, 256]
-// f32, 64 KB at chunk 64). The walk repeats the forward kernel's arithmetic
-// operation for operation (built with the same --fmad=false, 1/sqrtf), so
-// alpha, the alpha >= alpha_min cull, the T * (1 - alpha) >=
-// transmittance_min test and the 3D/2D switch decide exactly as in the
-// forward.
+// Decisions and precision. Which entries a pixel composited is decided once
+// per chunk, by a forward walk from the chunk's stashed carry-in with the
+// forward kernel's decisions and carry update (blend_common.cuh), so alpha,
+// the alpha >= alpha_min cull, the T * (1 - alpha) >= transmittance_min test
+// and the 3D/2D switch decide exactly as in the forward; the walk keeps one
+// bit per entry and pixel, and T after the last entry composited at the end
+// of every 32-entry sub-block. The reverse walk then recovers T_k of each
+// composited entry from the T after it by one division by (1 - alpha_k):
+// the forward rounded T_k (1 - alpha_k) once with the same (1 - alpha_k), so
+// each step is within two roundings, and the error of a sub-block's at most
+// 32 steps stays under 1e-5 relative, far inside the gradient bar
+// (5e-4 + 1e-3 relative); each sub-block restarts from its exact end value.
+// The derivative chain feeds no decision: it contracts (fmaf) and divides by
+// (1 - alpha), n.d and depth^2 with __fdividef / __frcp_rn.
 //
-// Layout. One 256-thread CTA per tile, one thread per pixel, chunks from
-// ndone-1 down to 0. A chunk's rows and their pixel-independent quantities
-// are staged in shared memory, as in the forward. For each entry the 19
-// partials are summed over a warp with shuffles (skipped when no lane of the
-// warp composited the entry) and over the 8 warps through shared memory. No
-// global atomics: the cross-tile sum is the window gather's backward.
+// What bounds it on this card: issue slots. Per processed entry-pixel it
+// computes the hit (~30 flops, one expf, one division) in the forward walk
+// and again, with ~60 flops of derivatives, in the reverse walk where the
+// pixel composited the entry, and its share of the reduction of 19 partials
+// over the tile's pixels; a train render reads 1024 tiles x 128 x 13 f32 =
+// 6.8 MB of entries and writes as much. The first version (one pixel per
+// thread; each of the 19 partials summed over a warp by its own 5-shuffle
+// butterfly, 95 shuffles per entry and warp; T_k of the whole chunk and the
+// partials of every warp in shared memory, 108 KB per block, two blocks per
+// SM) spent about 4.8 SM clocks per entry-pixel at the train config, most
+// of it in shuffles.
+//
+// What the design does about it:
+//  - one 128-thread block per tile, two pixels per thread (p and p + 128):
+//    a thread sums its two pixels' partials in registers before any
+//    shuffle, and the two pixels are independent chains;
+//  - a transposed warp reduction (warp_sum19): at each butterfly level a
+//    lane keeps half of its partial vector and sends the other half, so the
+//    19 partials take 10 + 5 + 3 + 2 + 1 = 21 shuffles per entry and warp,
+//    and lane l ends with the warp's total of partial slot19(l); the order
+//    of every sum is fixed and there are no atomics, so two calls agree bit
+//    for bit; an entry no lane of the warp composited skips it;
+//  - no T_k buffer: the hit bits and the sub-block end values take 2 KB at
+//    chunk 64, so shared memory per block falls from 108 KB to 28 KB
+//    (staged records 5 KB, bits and end values 2 KB, the per-warp partials
+//    of the chunk [4][chunk][19] 19 KB), and registers, not shared memory,
+//    set the blocks per SM (__launch_bounds__ asks for four: 16 warps of
+//    two pixels each); a sub-block re-walk into a [16, 256] T_k buffer
+//    (45 KB per block) was measured first and was slower;
+//  - the forward walk takes two entries at a time and computes their four
+//    hits (two entries, two pixels) before the four decisions, so the
+//    scheduler has four independent chains between two T updates; a pair
+//    with no opacity (the fine stage's deselected surfels) skips them;
+//  - the per-warp partials of the chunk are chained into rows once per
+//    chunk, one thread per entry, after one barrier;
+//  - blocks take the tiles heaviest first (blend_common.cuh:
+//    tile_of_block), so no heavy tile is left for the last wave.
+// Five blocks per SM (the cotangents and totals moved to shared memory, 93
+// registers) ran faster on the random scene of the coarse decoder at init
+// and slower on the trained-statistics scene, on the H100; four are kept.
 //
 // Replay mode (stash null on input). The tile first walks its chunks
 // forward from (T = 1, A = M1 = M2 = 0) with the forward kernel's exit rule
@@ -68,395 +108,413 @@
 // when the count runs out) and its exact operations, so every carry-in, the
 // final carry and the processed-chunk count ndone are bit for bit those the
 // stash forward writes; then the reverse walk runs unchanged, with the
-// totals (A, M1, M2) from the final carry. Where the carries live: each
-// thread keeps its own pixel's carry-in T per chunk in a per-thread array
-// of kMaxReplayChunks slots (local memory, cached in L1; the reverse walk
-// reads one slot per chunk) and the final (A, M1, M2) in registers. Shared
-// memory stays what the stash mode uses (108 KB at chunk 64, two blocks per
-// SM); [K/C + 1, 4, 256] f32 more of it (12 KB at the train config) would
-// have dropped the kernel to one block per SM. budget/chunk above
-// kMaxReplayChunks is refused. With the optional outputs non-null the replay
-// also writes what it rebuilt, in the stash forward's layout, for a check
-// against the stash path.
-//
-// What bounds it on this card. Per processed entry-pixel it does the
-// forward's ~40 flops and one expf twice (the forward walk and the reverse
-// walk) plus ~60 flops of derivatives, and per entry and warp up to
-// 19 x 5 shuffles: ALU and shuffle work, not bytes (a train render reads
-// 1024 tiles x 128 x 13 f32 = 6.8 MB of entries and writes as much). The
-// replay mode adds one more forward walk (~40 flops and one expf per
-// entry-pixel of a processed chunk). Shared memory (about 108 KB per block
-// at chunk 64) allows two blocks per SM in both modes.
+// totals (A, M1, M2) from the final carry. Each thread keeps its pixels'
+// carry-in T per chunk in per-thread arrays of kMaxReplayChunks slots
+// (local memory, cached in L1) and the final (A, M1, M2) in registers.
+// budget/chunk above kMaxReplayChunks is refused. With the optional outputs
+// non-null the replay also writes what it rebuilt, in the stash forward's
+// layout, for a check against the stash path.
 
-#include <cuda_runtime.h>
-#include <math_constants.h>
+#include "blend_common.cuh"
 
 namespace {
 
-constexpr int kPackCols = 13;
-constexpr int kNumChannels = 10;
-constexpr int kWarps = 8;  // 256 pixels per tile
+using namespace blend;
+
+constexpr int kWarps = kThreads / 32;
+constexpr int kSub = 32;              // entries per sub-block: one word of hit bits
 constexpr int kMaxReplayChunks = 16;  // cuda_blend.MAX_REPLAY_CHUNKS
-enum Field {
-  kN0, kN1, kN2, kC2x, kC2y, kNc, kCau, kCbv, kCz,
-  kAu0, kAu1, kAu2, kBv0, kBv1, kBv2, kR, kG, kB, kOp, kNumFields
-};
+constexpr int kPartials = 19;
 // per-entry partial gradients, summed over the tile's pixels
 enum Partial {
   dN0, dN1, dN2, dNc, dAu0, dAu1, dAu2, dCau, dBv0, dBv1, dBv2, dCbv,
-  dC2x, dC2y, dCz, dR, dG, dB, dOp, kNumPartials
+  dC2x, dC2y, dCz, dR, dG, dB, dOp
 };
 
-struct Params {
-  int tiles_x, tile, width, height, budget, chunk;
-  float alpha_min, t_min, near_cull, dist_near, dist_far, filter2d_invsq;
-};
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// The entry-pixel quantities of the forward kernel, in its exact operations.
-struct Hit {
-  float nd, tt, dau, dbv, u, v, ex, ey, rho, depth, gauss, alpha;
-  bool nd_ok, use3d;
-};
-
-__device__ __forceinline__ Hit entry_hit(const float* sm, int c, int j,
-                                         float px, float py, float dx,
-                                         float dy, float op, const Params& p) {
-  Hit h;
-  const float n0 = sm[kN0 * c + j], n1 = sm[kN1 * c + j], n2 = sm[kN2 * c + j];
-  h.nd = n0 * dx + n1 * dy + n2;
-  h.nd_ok = fabsf(h.nd) >= 1e-8f;
-  h.tt = sm[kNc * c + j] / (h.nd_ok ? h.nd : 1e-8f);
-  h.dau = sm[kAu0 * c + j] * dx + sm[kAu1 * c + j] * dy + sm[kAu2 * c + j];
-  h.dbv = sm[kBv0 * c + j] * dx + sm[kBv1 * c + j] * dy + sm[kBv2 * c + j];
-  h.u = h.tt * h.dau - sm[kCau * c + j];
-  h.v = h.tt * h.dbv - sm[kCbv * c + j];
-  const float rho3d = h.nd_ok ? h.u * h.u + h.v * h.v : CUDART_INF_F;
-  h.ex = px - sm[kC2x * c + j];
-  h.ey = py - sm[kC2y * c + j];
-  const float rho2d = p.filter2d_invsq * (h.ex * h.ex + h.ey * h.ey);
-  h.use3d = rho3d <= rho2d;
-  h.rho = h.use3d ? rho3d : rho2d;
-  h.depth = h.use3d ? h.tt : sm[kCz * c + j];
-  h.gauss = op * expf(-0.5f * h.rho);
-  h.alpha = fminf(0.99f, h.gauss);
-  return h;
-}
-
-// Stage the chunk's m rows and their pixel-independent quantities in shared
-// memory, in the forward kernel's exact operations.
-__device__ __forceinline__ void stage_chunk(float* sm, const float* rows,
-                                            int c, int m, float fx, float fy,
-                                            float half_w, float half_h) {
-  for (int j = threadIdx.x; j < m; j += blockDim.x) {
-    const float* r = rows + (size_t)j * kPackCols;
-    const float cx = r[0], cy = r[1], cz = r[2];
-    const float au0 = r[3], au1 = r[4], au2 = r[5];
-    const float bv0 = r[6], bv1 = r[7], bv2 = r[8];
-    float n0 = au1 * bv2 - au2 * bv1;
-    float n1 = au2 * bv0 - au0 * bv2;
-    float n2 = au0 * bv1 - au1 * bv0;
-    const float inv = 1.0f / sqrtf(n0 * n0 + n1 * n1 + n2 * n2 + 1e-20f);
-    const float sgn = (cx * n0 + cy * n1 + cz * n2 <= 0.0f) ? inv : -inv;
-    n0 *= sgn; n1 *= sgn; n2 *= sgn;
-    const float cz_safe = fabsf(cz) < 1e-6f ? 1e-6f : cz;
-    sm[kN0 * c + j] = n0;
-    sm[kN1 * c + j] = n1;
-    sm[kN2 * c + j] = n2;
-    sm[kC2x * c + j] = fx * cx / cz_safe + half_w;
-    sm[kC2y * c + j] = fy * cy / cz_safe + half_h;
-    sm[kNc * c + j] = n0 * cx + n1 * cy + n2 * cz;
-    sm[kCau * c + j] = au0 * cx + au1 * cy + au2 * cz;
-    sm[kCbv * c + j] = bv0 * cx + bv1 * cy + bv2 * cz;
-    sm[kCz * c + j] = cz;
-    sm[kAu0 * c + j] = au0;
-    sm[kAu1 * c + j] = au1;
-    sm[kAu2 * c + j] = au2;
-    sm[kBv0 * c + j] = bv0;
-    sm[kBv1 * c + j] = bv1;
-    sm[kBv2 * c + j] = bv2;
-    sm[kR * c + j] = r[9];
-    sm[kG * c + j] = r[10];
-    sm[kB * c + j] = r[11];
-    sm[kOp * c + j] = r[12];
+// Sum 19 values over the warp, transposed: at the level of lane bit b, a
+// lane keeps the half of its vector that its bit selects and adds what its
+// partner sends of the same half. Returns the warp's total of the value
+// slot19(lane), or of a padding slot.
+__device__ __forceinline__ float warp_sum19(const float (&v)[kPartials], int lane) {
+  const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4, b1 = lane & 2, b0 = lane & 1;
+  float a[10];
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    const float lo = v[i], hi = i + 10 < kPartials ? v[i + 10] : 0.0f;
+    a[i] = (b4 ? hi : lo) + __shfl_xor_sync(0xffffffffu, b4 ? lo : hi, 16);
   }
+  float b[5];
+#pragma unroll
+  for (int i = 0; i < 5; ++i)
+    b[i] = (b3 ? a[i + 5] : a[i]) + __shfl_xor_sync(0xffffffffu, b3 ? a[i] : a[i + 5], 8);
+  float c[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const float lo = b[i], hi = i + 3 < 5 ? b[i + 3] : 0.0f;
+    c[i] = (b2 ? hi : lo) + __shfl_xor_sync(0xffffffffu, b2 ? lo : hi, 4);
+  }
+  float d[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float lo = c[i], hi = i + 2 < 3 ? c[i + 2] : 0.0f;
+    d[i] = (b1 ? hi : lo) + __shfl_xor_sync(0xffffffffu, b1 ? lo : hi, 2);
+  }
+  return (b0 ? d[1] : d[0]) + __shfl_xor_sync(0xffffffffu, b0 ? d[0] : d[1], 1);
+}
+
+// The partial whose total warp_sum19 leaves in `lane`, or -1 for padding.
+__device__ __forceinline__ int slot19(int lane) {
+  const int in_c = ((lane & 2) ? 2 : 0) + (lane & 1);      // of c's 3 (+1 pad)
+  const int in_b = ((lane & 4) ? 3 : 0) + in_c;             // of b's 5 (+1 pad)
+  const int f = ((lane & 16) ? 10 : 0) + ((lane & 8) ? 5 : 0) + in_b;
+  return (in_c < 3 && in_b < 5 && f < kPartials) ? f : -1;
+}
+
+// One pixel's state in the backward: its ray, its cotangent, the final
+// moments, and S = sum over the later composited entries of w dL/dw.
+struct PixelGrad {
+  Pixel q;
+  float g_r, g_g, g_b, g_a, g_d, g_n0, g_n1, g_n2, g_dist;
+  float a_tot, m1_tot, m2_tot, S;
+};
+
+// One decision of the forward walk, from the entry-pixel's hit: whether the
+// pixel composites the entry; T after it; and Tc, T after the last entry it
+// composited (T but for the entry that saturates the pixel, which it does
+// not composite).
+__device__ __forceinline__ bool decide(const Entry& en, const Hit& h, float& T, float& Tc,
+                                       const Params& p) {
+  if (!(T >= p.t_min && en.ctr.w > 0.0f && passes_cull(h, p))) return false;
+  const float t_next = next_t(T, h.alpha);
+  T = t_next;  // a saturating entry leaves T below t_min: no more hits
+  if (t_next < p.t_min) return false;
+  Tc = t_next;
+  return true;
+}
+
+// The partials of one composited entry-pixel, added into d; S moves past
+// it, and Tc, T after the entry, becomes T_k, T before it.
+__device__ __forceinline__ void add_partials(const Entry& en, PixelGrad& s, float& Tc,
+                                             const Params& p, const View& v,
+                                             float (&d)[kPartials]) {
+  const Hit h = entry_hit(en, s.q, p.filter2d_invsq);
+  // the forward rounded T_k (1 - alpha) once: T_k back within two roundings
+  const float tk = __fdividef(Tc, 1.0f - h.alpha);
+  Tc = tk;
+  const float w = __fmul_rn(h.alpha, tk);
+  const float md = dist_depth(h.depth, p, v);
+  float dl_dw = fmaf(s.g_r, en.rgb.x, fmaf(s.g_g, en.rgb.y, fmaf(s.g_b, en.rgb.z, s.g_a)));
+  dl_dw = fmaf(s.g_d, h.depth, dl_dw);
+  dl_dw = fmaf(s.g_n0, en.n.x, fmaf(s.g_n1, en.n.y, fmaf(s.g_n2, en.n.z, dl_dw)));
+  dl_dw = fmaf(s.g_dist, fmaf(md * md, s.a_tot, fmaf(-2.0f * md, s.m1_tot, s.m2_tot)), dl_dw);
+  const float dl_dalpha = fmaf(tk, dl_dw, -__fdividef(s.S, 1.0f - h.alpha));
+  s.S = fmaf(w, dl_dw, s.S);
+  const float dl_dmd = 2.0f * s.g_dist * w * fmaf(md, s.a_tot, -s.m1_tot);
+  const float dl_ddepth = fmaf(s.g_d, w, h.depth > 1e-6f
+      ? dl_dmd * __fdividef(v.nrm_c * p.dist_near, h.depth * h.depth) : 0.0f);
+  const float dl_dgauss = h.gauss < 0.99f ? dl_dalpha : 0.0f;
+  const float dl_drho = -0.5f * h.gauss * dl_dgauss;
+  d[dOp] = fmaf(dl_dgauss, h.e, d[dOp]);
+  d[dR] = fmaf(w, s.g_r, d[dR]);
+  d[dG] = fmaf(w, s.g_g, d[dG]);
+  d[dB] = fmaf(w, s.g_b, d[dB]);
+  d[dN0] = fmaf(w, s.g_n0, d[dN0]);
+  d[dN1] = fmaf(w, s.g_n1, d[dN1]);
+  d[dN2] = fmaf(w, s.g_n2, d[dN2]);
+  if (h.use3d) {
+    const float dl_du = 2.0f * h.u * dl_drho;
+    const float dl_dv = 2.0f * h.v * dl_drho;
+    const float dl_dtt = fmaf(dl_du, h.dau, fmaf(dl_dv, h.dbv, dl_ddepth));
+    const float inv_nd = __frcp_rn(h.nd_ok ? h.nd : 1e-8f);
+    const float dl_dnd = h.nd_ok ? -dl_dtt * h.tt * inv_nd : 0.0f;
+    d[dNc] = fmaf(dl_dtt, inv_nd, d[dNc]);
+    d[dN0] = fmaf(dl_dnd, s.q.dx, d[dN0]);
+    d[dN1] = fmaf(dl_dnd, s.q.dy, d[dN1]);
+    d[dN2] += dl_dnd;
+    const float ddau = dl_du * h.tt, ddbv = dl_dv * h.tt;
+    d[dAu0] = fmaf(ddau, s.q.dx, d[dAu0]);
+    d[dAu1] = fmaf(ddau, s.q.dy, d[dAu1]);
+    d[dAu2] += ddau;
+    d[dCau] -= dl_du;
+    d[dBv0] = fmaf(ddbv, s.q.dx, d[dBv0]);
+    d[dBv1] = fmaf(ddbv, s.q.dy, d[dBv1]);
+    d[dBv2] += ddbv;
+    d[dCbv] -= dl_dv;
+  } else {
+    const float k = -2.0f * p.filter2d_invsq * dl_drho;
+    d[dC2x] = fmaf(k, h.ex, d[dC2x]);
+    d[dC2y] = fmaf(k, h.ey, d[dC2y]);
+    d[dCz] += dl_ddepth;
+  }
+}
+
+// Chain the block's partials of entry row r into its 13 gradient columns.
+__device__ __forceinline__ void chain_row(const float (&d)[kPartials], const float* r,
+                                          const View& v, float* out) {
+  const float cx = r[0], cy = r[1], cz = r[2];
+  const float au0 = r[3], au1 = r[4], au2 = r[5];
+  const float bv0 = r[6], bv1 = r[7], bv2 = r[8];
+  const float c0 = au1 * bv2 - au2 * bv1;
+  const float c1 = au2 * bv0 - au0 * bv2;
+  const float c2 = au0 * bv1 - au1 * bv0;
+  const float inv = 1.0f / sqrtf(c0 * c0 + c1 * c1 + c2 * c2 + 1e-20f);
+  const float sgn = (cx * c0 + cy * c1 + cz * c2 <= 0.0f) ? inv : -inv;
+  const float n0 = c0 * sgn, n1 = c1 * sgn, n2 = c2 * sgn;
+  const bool cz_ok = !(fabsf(cz) < 1e-6f);
+  const float cz_safe = cz_ok ? cz : 1e-6f;
+
+  // n.c, au.c, bv.c and the screen center feed the center and the axes
+  const float dn0 = d[dN0] + d[dNc] * cx;
+  const float dn1 = d[dN1] + d[dNc] * cy;
+  const float dn2 = d[dN2] + d[dNc] * cz;
+  const float dsafe = -(d[dC2x] * v.fx * cx + d[dC2y] * v.fy * cy) / (cz_safe * cz_safe);
+  const float dcx = d[dNc] * n0 + d[dCau] * au0 + d[dCbv] * bv0 + d[dC2x] * v.fx / cz_safe;
+  const float dcy = d[dNc] * n1 + d[dCau] * au1 + d[dCbv] * bv1 + d[dC2y] * v.fy / cz_safe;
+  const float dcz = d[dNc] * n2 + d[dCau] * au2 + d[dCbv] * bv2 + d[dCz]
+                    + (cz_ok ? dsafe : 0.0f);
+  // n = sgn * (au x bv), sgn = +-1/|au x bv|: back through the
+  // normalisation (the flip's sign is a decision, not a value)
+  const float proj = (c0 * dn0 + c1 * dn1 + c2 * dn2) * inv * inv;
+  const float dc0 = sgn * (dn0 - proj * c0);
+  const float dc1 = sgn * (dn1 - proj * c1);
+  const float dc2 = sgn * (dn2 - proj * c2);
+  // c = au x bv: d_au = bv x d_c, d_bv = d_c x au
+  out[0] = dcx;
+  out[1] = dcy;
+  out[2] = dcz;
+  out[3] = d[dAu0] + d[dCau] * cx + (bv1 * dc2 - bv2 * dc1);
+  out[4] = d[dAu1] + d[dCau] * cy + (bv2 * dc0 - bv0 * dc2);
+  out[5] = d[dAu2] + d[dCau] * cz + (bv0 * dc1 - bv1 * dc0);
+  out[6] = d[dBv0] + d[dCbv] * cx + (dc1 * au2 - dc2 * au1);
+  out[7] = d[dBv1] + d[dCbv] * cy + (dc2 * au0 - dc0 * au2);
+  out[8] = d[dBv2] + d[dCbv] * cz + (dc0 * au1 - dc1 * au0);
+  out[9] = d[dR];
+  out[10] = d[dG];
+  out[11] = d[dB];
+  out[12] = d[dOp];
+}
+
+// Shared memory of one block, in bytes (cuda_blend.kernel_smem mirrors it).
+size_t smem_bytes(int chunk) {
+  const int nsub = (chunk + kSub - 1) / kSub;
+  return sizeof(float4) * kRecords * chunk
+         + sizeof(float) * ((size_t)2 * nsub * kTilePixels + (size_t)kWarps * chunk * kPartials);
 }
 
 // kReplay false: stash and ndone_arr are the stash forward's outputs, read.
 // kReplay true: they are optional outputs (null to skip) of the replay walk.
 template <bool kReplay>
-__global__ void blend_bwd_kernel(const float* __restrict__ entries,
-                                 const int* __restrict__ counts,
-                                 const float* __restrict__ scalars,
-                                 float* __restrict__ stash,
-                                 int* __restrict__ ndone_arr,
-                                 const float* __restrict__ cot,
-                                 float* __restrict__ grad, Params p) {
-  extern __shared__ float smem[];
+__global__ void __launch_bounds__(kThreads, 4) blend_bwd_kernel(
+    const float* __restrict__ entries, const int* __restrict__ counts,
+    const float* __restrict__ scalars, float* __restrict__ stash, int* __restrict__ ndone_arr,
+    const float* __restrict__ cot, float* __restrict__ grad, Params p) {
+  extern __shared__ float4 smem4[];
   const int c = p.chunk;
-  float* sm = smem;                                  // [kNumFields][chunk]
-  float* tbuf = sm + kNumFields * c;                 // [chunk][256] T_k or -1
-  float* red = tbuf + c * blockDim.x;                // [kWarps][kNumPartials][chunk]
+  const int nsub = (c + kSub - 1) / kSub;
+  float4* rec = smem4;                                               // [chunk][kRecords]
+  unsigned* hits = reinterpret_cast<unsigned*>(rec + c * kRecords);  // [nsub][256] hit bits
+  float* tend = reinterpret_cast<float*>(hits + nsub * kTilePixels); // [nsub][256] end Tc
+  float* red = tend + nsub * kTilePixels;                            // [kWarps][chunk][19]
 
-  const int t = blockIdx.x;
-  const int pid = threadIdx.x;
-  const int npix = blockDim.x;
-  const int lane = pid & 31, warp = pid >> 5;
+  const int t = tile_of_block(counts, gridDim.x, p.budget);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int slot = slot19(lane);
   const int n = min(counts[t], p.budget);
   const int slots = p.budget / c + 1;
+  const View v = make_view(scalars, p);
+  const float* tile_rows = entries + static_cast<size_t>(t) * p.budget * kPackCols;
+  float* st = stash == nullptr ? nullptr
+                               : stash + static_cast<size_t>(t) * slots * 4 * kTilePixels + tid;
 
-  const float fx = p.width / (2.0f * scalars[0]);
-  const float fy = p.height / (2.0f * scalars[1]);
-  const float half_w = p.width * 0.5f, half_h = p.height * 0.5f;
-  const float px = (t % p.tiles_x) * p.tile + (pid % p.tile) + 0.5f;
-  const float py = (t / p.tiles_x) * p.tile + (pid / p.tile) + 0.5f;
-  const float dx = (px - half_w) / fx;
-  const float dy = (py - half_h) / fy;
-  const float nrm_c = p.dist_far / (p.dist_far - p.dist_near);
-  const float* tile_rows = entries + (size_t)t * p.budget * kPackCols;
-  float* st = stash == nullptr ? nullptr : stash + (size_t)t * slots * 4 * npix + pid;
+  PixelGrad s[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    s[h].q = make_pixel(t, tid + h * kThreads, p, v);
+    const float* g = cot + static_cast<size_t>(t) * kNumChannels * kTilePixels + tid + h * kThreads;
+    s[h].g_r = g[0];
+    s[h].g_g = g[kTilePixels];
+    s[h].g_b = g[2 * kTilePixels];
+    s[h].g_a = g[3 * kTilePixels];
+    s[h].g_d = g[4 * kTilePixels];
+    s[h].g_n0 = g[6 * kTilePixels];
+    s[h].g_n1 = g[7 * kTilePixels];
+    s[h].g_n2 = g[8 * kTilePixels];
+    s[h].g_dist = g[9 * kTilePixels];
+    s[h].S = 0.0f;
+  }
 
   int ndone;
-  float a_tot, m1_tot, m2_tot;
-  float t_in[kReplay ? kMaxReplayChunks : 1];  // replay: carry-in T per chunk
+  float t_in[2][kReplay ? kMaxReplayChunks : 1];  // replay: carry-in T per chunk
   if constexpr (kReplay) {
     // the forward kernel's walk, without its colour sums
-    float T = 1.0f, A = 0.0f, M1 = 0.0f, M2 = 0.0f;
+    Carry cr[2] = {{1.0f, 0.0f, 0.0f, 0.0f}, {1.0f, 0.0f, 0.0f, 0.0f}};
     auto put_carry = [&](int ci) {
       if (st != nullptr) {
-        st[(ci * 4) * npix] = T;
-        st[(ci * 4 + 1) * npix] = A;
-        st[(ci * 4 + 2) * npix] = M1;
-        st[(ci * 4 + 3) * npix] = M2;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float* sh = st + (ci * 4) * kTilePixels + h * kThreads;
+          sh[0] = cr[h].T;
+          sh[kTilePixels] = cr[h].A;
+          sh[2 * kTilePixels] = cr[h].M1;
+          sh[3 * kTilePixels] = cr[h].M2;
+        }
       }
     };
     int ci = 0;
     for (int k0 = 0; k0 < n; k0 += c) {
       const int m = min(c, n - k0);
-      t_in[ci] = T;
+      t_in[0][ci] = cr[0].T;
+      t_in[1][ci] = cr[1].T;
       put_carry(ci);
       ++ci;
-      stage_chunk(sm, tile_rows + (size_t)k0 * kPackCols, c, m, fx, fy, half_w, half_h);
+      stage_chunk(rec, tile_rows + static_cast<size_t>(k0) * kPackCols, m, v);
       __syncthreads();
-      if (T >= p.t_min) {
-        for (int j = 0; j < m; ++j) {
-          const float op = sm[kOp * c + j];
-          if (!(op > 0.0f)) continue;
-          const Hit h = entry_hit(sm, c, j, px, py, dx, dy, op, p);
-          if (!(h.alpha >= p.alpha_min && h.depth >= p.near_cull)) continue;
-          const float t_next = T * (1.0f - h.alpha);
-          if (t_next < p.t_min) {
-            T = t_next;
-            break;
+      for (int j = 0; j < m; ++j) {
+        if (!(cr[0].T >= p.t_min || cr[1].T >= p.t_min)) break;
+        const Entry en = load_entry(rec, j);
+        if (!(en.ctr.w > 0.0f)) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const Hit hit = entry_hit(en, s[h].q, p.filter2d_invsq);
+          if (cr[h].T >= p.t_min && passes_cull(hit, p)) {
+            const float t_next = next_t(cr[h].T, hit.alpha);
+            if (t_next >= p.t_min)
+              add_moments(cr[h], __fmul_rn(hit.alpha, cr[h].T), dist_depth(hit.depth, p, v));
+            cr[h].T = t_next;
           }
-          const float w = h.alpha * T;
-          const float md = nrm_c * (1.0f - p.dist_near / fmaxf(h.depth, 1e-6f));
-          A += w;
-          M1 += w * md;
-          M2 += w * md * md;
-          T = t_next;
         }
       }
       // also the barrier before the next staging (here or in the reverse walk)
-      if (__syncthreads_count(T >= p.t_min) == 0) break;
+      if (__syncthreads_count(cr[0].T >= p.t_min || cr[1].T >= p.t_min) == 0) break;
     }
     put_carry(ci);
-    if (ndone_arr != nullptr && pid == 0) ndone_arr[t] = ci;
+    if (ndone_arr != nullptr && tid == 0) ndone_arr[t] = ci;
     ndone = ci;
-    a_tot = A;
-    m1_tot = M1;
-    m2_tot = M2;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      s[h].a_tot = cr[h].A;
+      s[h].m1_tot = cr[h].M1;
+      s[h].m2_tot = cr[h].M2;
+    }
   } else {
     ndone = ndone_arr[t];
-    a_tot = st[(ndone * 4 + 1) * npix];
-    m1_tot = st[(ndone * 4 + 2) * npix];
-    m2_tot = st[(ndone * 4 + 3) * npix];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float* sh = st + (ndone * 4) * kTilePixels + h * kThreads;
+      s[h].a_tot = sh[kTilePixels];
+      s[h].m1_tot = sh[2 * kTilePixels];
+      s[h].m2_tot = sh[3 * kTilePixels];
+    }
   }
 
-  const float* g = cot + (size_t)t * kNumChannels * npix + pid;
-  const float g_r = g[0], g_g = g[npix], g_b = g[2 * npix], g_a = g[3 * npix];
-  const float g_d = g[4 * npix], g_n0 = g[6 * npix], g_n1 = g[7 * npix];
-  const float g_n2 = g[8 * npix], g_dist = g[9 * npix];
-
-  float* tile_grad = grad + (size_t)t * p.budget * kPackCols;
-  for (int i = ndone * c * kPackCols + pid; i < p.budget * kPackCols; i += npix)
+  float* tile_grad = grad + static_cast<size_t>(t) * p.budget * kPackCols;
+  for (int i = ndone * c * kPackCols + tid; i < p.budget * kPackCols; i += kThreads)
     tile_grad[i] = 0.0f;
 
-  float S = 0.0f;  // sum over later composited entries of w_j dL/dw_j
   for (int ci = ndone - 1; ci >= 0; --ci) {
     const int k0 = ci * c;
     const int m = min(c, n - k0);
-    stage_chunk(sm, tile_rows + (size_t)k0 * kPackCols, c, m, fx, fy, half_w, half_h);
+    stage_chunk(rec, tile_rows + static_cast<size_t>(k0) * kPackCols, m, v);
     __syncthreads();
 
-    // forward walk of this chunk from its carry-in: T_k of every entry this
-    // pixel composited, -1 for the others
-    float T = kReplay ? t_in[ci] : st[(ci * 4) * npix];
-    for (int j = 0; j < m; ++j) {
-      float tk = -1.0f;
-      const float op = sm[kOp * c + j];
-      if (T >= p.t_min && op > 0.0f) {
-        const Hit h = entry_hit(sm, c, j, px, py, dx, dy, op, p);
-        if (h.alpha >= p.alpha_min && h.depth >= p.near_cull) {
-          const float t_next = T * (1.0f - h.alpha);
-          if (t_next >= p.t_min) tk = T;
-          T = t_next;  // a killing entry leaves T below t_min: no more hits
-        }
+    // forward walk of the chunk from its carry-in, with the forward's
+    // decisions: per sub-block, which entries each pixel composited (one bit
+    // each) and Tc at its end
+    float T[2], Tc[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      T[h] = kReplay ? t_in[h][ci] : st[(ci * 4) * kTilePixels + h * kThreads];
+      Tc[h] = T[h];
+    }
+    unsigned bits0 = 0u, bits1 = 0u;
+    auto record = [&](int j, bool hit0, bool hit1) {
+      bits0 |= static_cast<unsigned>(hit0) << (j % kSub);
+      bits1 |= static_cast<unsigned>(hit1) << (j % kSub);
+      if (j % kSub == kSub - 1 || j == m - 1) {
+        const int at = (j / kSub) * kTilePixels + tid;
+        hits[at] = bits0;
+        hits[at + kThreads] = bits1;
+        tend[at] = Tc[0];
+        tend[at + kThreads] = Tc[1];
+        bits0 = bits1 = 0u;
       }
-      tbuf[j * npix + pid] = tk;
+    };
+    // two entries at a time: their four hits before the four decisions,
+    // each pixel's in entry order
+    for (int j = 0; j < m; j += 2) {
+      const Entry e0 = load_entry(rec, j), e1 = load_entry(rec, min(j + 1, m - 1));
+      if (!(e0.ctr.w > 0.0f) && !(j + 1 < m && e1.ctr.w > 0.0f)) {  // no opacity: no hits
+        record(j, false, false);
+        if (j + 1 < m) record(j + 1, false, false);
+        continue;
+      }
+      const Hit h00 = entry_hit(e0, s[0].q, p.filter2d_invsq);
+      const Hit h01 = entry_hit(e0, s[1].q, p.filter2d_invsq);
+      const Hit h10 = entry_hit(e1, s[0].q, p.filter2d_invsq);
+      const Hit h11 = entry_hit(e1, s[1].q, p.filter2d_invsq);
+      record(j, decide(e0, h00, T[0], Tc[0], p), decide(e0, h01, T[1], Tc[1], p));
+      if (j + 1 < m)
+        record(j + 1, decide(e1, h10, T[0], Tc[0], p), decide(e1, h11, T[1], Tc[1], p));
     }
 
-    // reverse walk: per-entry partials, reduced over the block
-    for (int j = m - 1; j >= 0; --j) {
-      float d[kNumPartials];
+    // reverse walk, a sub-block at a time from its end's Tc: T_k of each
+    // composited entry by division, per-entry partials summed over the two
+    // pixels, then over the warp
+    for (int j0 = ((m - 1) / kSub) * kSub; j0 >= 0; j0 -= kSub) {
+      const int at = (j0 / kSub) * kTilePixels + tid;
+      const unsigned w0 = hits[at], w1 = hits[at + kThreads];
+      float tc0 = tend[at], tc1 = tend[at + kThreads];
+      for (int j = min(m, j0 + kSub) - 1; j >= j0; --j) {
+        const bool hit0 = (w0 >> (j - j0)) & 1u, hit1 = (w1 >> (j - j0)) & 1u;
+        float* rj = red + (warp * c + j) * kPartials;
+        if (__any_sync(0xffffffffu, hit0 || hit1)) {
+          float d[kPartials];
 #pragma unroll
-      for (int f = 0; f < kNumPartials; ++f) d[f] = 0.0f;
-      const float tk = tbuf[j * npix + pid];
-      const bool hit = tk >= 0.0f;
-      if (hit) {
-        const float op = sm[kOp * c + j];
-        const Hit h = entry_hit(sm, c, j, px, py, dx, dy, op, p);
-        const float n0 = sm[kN0 * c + j], n1 = sm[kN1 * c + j], n2 = sm[kN2 * c + j];
-        const float rr = sm[kR * c + j], gg = sm[kG * c + j], bb = sm[kB * c + j];
-        const float w = h.alpha * tk;
-        const float md = nrm_c * (1.0f - p.dist_near / fmaxf(h.depth, 1e-6f));
-        const float dl_dw = g_r * rr + g_g * gg + g_b * bb + g_a + g_d * h.depth
-                            + g_n0 * n0 + g_n1 * n1 + g_n2 * n2
-                            + g_dist * (md * md * a_tot + m2_tot - 2.0f * md * m1_tot);
-        const float dl_dalpha = tk * dl_dw - S / (1.0f - h.alpha);
-        S += w * dl_dw;
-        const float dl_dmd = 2.0f * g_dist * w * (md * a_tot - m1_tot);
-        const float dl_ddepth = g_d * w
-            + (h.depth > 1e-6f
-                   ? dl_dmd * nrm_c * p.dist_near / (h.depth * h.depth) : 0.0f);
-        const float dl_dgauss = h.gauss < 0.99f ? dl_dalpha : 0.0f;
-        const float dl_drho = -0.5f * h.gauss * dl_dgauss;
-        d[dOp] = dl_dgauss * expf(-0.5f * h.rho);
-        d[dR] = w * g_r;
-        d[dG] = w * g_g;
-        d[dB] = w * g_b;
-        d[dN0] = w * g_n0;
-        d[dN1] = w * g_n1;
-        d[dN2] = w * g_n2;
-        if (h.use3d) {
-          const float dl_du = 2.0f * h.u * dl_drho;
-          const float dl_dv = 2.0f * h.v * dl_drho;
-          const float dl_dtt = dl_ddepth + dl_du * h.dau + dl_dv * h.dbv;
-          const float dl_dnd = h.nd_ok ? -dl_dtt * h.tt / h.nd : 0.0f;
-          d[dNc] = dl_dtt / (h.nd_ok ? h.nd : 1e-8f);
-          d[dN0] += dl_dnd * dx;
-          d[dN1] += dl_dnd * dy;
-          d[dN2] += dl_dnd;
-          const float ddau = dl_du * h.tt, ddbv = dl_dv * h.tt;
-          d[dAu0] = ddau * dx;
-          d[dAu1] = ddau * dy;
-          d[dAu2] = ddau;
-          d[dCau] = -dl_du;
-          d[dBv0] = ddbv * dx;
-          d[dBv1] = ddbv * dy;
-          d[dBv2] = ddbv;
-          d[dCbv] = -dl_dv;
-        } else {
-          const float k = -2.0f * p.filter2d_invsq * dl_drho;
-          d[dC2x] = k * h.ex;
-          d[dC2y] = k * h.ey;
-          d[dCz] = dl_ddepth;
+          for (int f = 0; f < kPartials; ++f) d[f] = 0.0f;
+          const Entry en = load_entry(rec, j);
+          if (hit0) add_partials(en, s[0], tc0, p, v, d);
+          if (hit1) add_partials(en, s[1], tc1, p, v, d);
+          const float total = warp_sum19(d, lane);
+          if (slot >= 0) rj[slot] = total;
+        } else if (slot >= 0) {
+          rj[slot] = 0.0f;
         }
-      }
-      float* rj = red + warp * kNumPartials * c + j;
-      if (__any_sync(0xffffffffu, hit)) {
-#pragma unroll
-        for (int f = 0; f < kNumPartials; ++f) {
-          const float s = warp_sum(d[f]);
-          if (lane == 0) rj[f * c] = s;
-        }
-      } else if (lane == 0) {
-#pragma unroll
-        for (int f = 0; f < kNumPartials; ++f) rj[f * c] = 0.0f;
       }
     }
     __syncthreads();
 
     // one thread per entry: sum the warps, chain into the 13 columns
-    for (int j = pid; j < c; j += npix) {
-      float* out = tile_grad + (size_t)(k0 + j) * kPackCols;
+    for (int j = tid; j < c; j += kThreads) {
+      float* out = tile_grad + static_cast<size_t>(k0 + j) * kPackCols;
       if (j >= m) {
         for (int f = 0; f < kPackCols; ++f) out[f] = 0.0f;
         continue;
       }
-      float d[kNumPartials];
-      for (int f = 0; f < kNumPartials; ++f) {
-        float s = 0.0f;
-        for (int wi = 0; wi < kWarps; ++wi) s += red[(wi * kNumPartials + f) * c + j];
-        d[f] = s;
+      float d[kPartials];
+#pragma unroll
+      for (int f = 0; f < kPartials; ++f) {
+        float sum = 0.0f;
+#pragma unroll
+        for (int wi = 0; wi < kWarps; ++wi) sum += red[(wi * c + j) * kPartials + f];
+        d[f] = sum;
       }
-      const float* r = tile_rows + (size_t)(k0 + j) * kPackCols;
-      const float cx = r[0], cy = r[1], cz = r[2];
-      const float au0 = r[3], au1 = r[4], au2 = r[5];
-      const float bv0 = r[6], bv1 = r[7], bv2 = r[8];
-      const float c0 = au1 * bv2 - au2 * bv1;
-      const float c1 = au2 * bv0 - au0 * bv2;
-      const float c2 = au0 * bv1 - au1 * bv0;
-      const float inv = 1.0f / sqrtf(c0 * c0 + c1 * c1 + c2 * c2 + 1e-20f);
-      const float sgn = (cx * c0 + cy * c1 + cz * c2 <= 0.0f) ? inv : -inv;
-      const float n0 = c0 * sgn, n1 = c1 * sgn, n2 = c2 * sgn;
-      const bool cz_ok = !(fabsf(cz) < 1e-6f);
-      const float cz_safe = cz_ok ? cz : 1e-6f;
-
-      // n.c, au.c, bv.c and the screen center feed the center and the axes
-      const float dn0 = d[dN0] + d[dNc] * cx;
-      const float dn1 = d[dN1] + d[dNc] * cy;
-      const float dn2 = d[dN2] + d[dNc] * cz;
-      const float dsafe = -(d[dC2x] * fx * cx + d[dC2y] * fy * cy) / (cz_safe * cz_safe);
-      const float dcx = d[dNc] * n0 + d[dCau] * au0 + d[dCbv] * bv0 + d[dC2x] * fx / cz_safe;
-      const float dcy = d[dNc] * n1 + d[dCau] * au1 + d[dCbv] * bv1 + d[dC2y] * fy / cz_safe;
-      const float dcz = d[dNc] * n2 + d[dCau] * au2 + d[dCbv] * bv2 + d[dCz]
-                        + (cz_ok ? dsafe : 0.0f);
-      // n = sgn * (au x bv), sgn = +-1/|au x bv|: back through the
-      // normalisation (the flip's sign is a decision, not a value)
-      const float proj = (c0 * dn0 + c1 * dn1 + c2 * dn2) * inv * inv;
-      const float dc0 = sgn * (dn0 - proj * c0);
-      const float dc1 = sgn * (dn1 - proj * c1);
-      const float dc2 = sgn * (dn2 - proj * c2);
-      // c = au x bv: d_au = bv x d_c, d_bv = d_c x au
-      out[0] = dcx;
-      out[1] = dcy;
-      out[2] = dcz;
-      out[3] = d[dAu0] + d[dCau] * cx + (bv1 * dc2 - bv2 * dc1);
-      out[4] = d[dAu1] + d[dCau] * cy + (bv2 * dc0 - bv0 * dc2);
-      out[5] = d[dAu2] + d[dCau] * cz + (bv0 * dc1 - bv1 * dc0);
-      out[6] = d[dBv0] + d[dCbv] * cx + (dc1 * au2 - dc2 * au1);
-      out[7] = d[dBv1] + d[dCbv] * cy + (dc2 * au0 - dc0 * au2);
-      out[8] = d[dBv2] + d[dCbv] * cz + (dc0 * au1 - dc1 * au0);
-      out[9] = d[dR];
-      out[10] = d[dG];
-      out[11] = d[dB];
-      out[12] = d[dOp];
+      chain_row(d, tile_rows + static_cast<size_t>(k0 + j) * kPackCols, v, out);
     }
     // barrier before the next chunk overwrites shared memory
     __syncthreads();
   }
 }
 
-// Shared memory of one block, in bytes.
-size_t smem_bytes(int chunk, int tile) {
-  return sizeof(float) * ((size_t)kNumFields * chunk + (size_t)chunk * tile * tile
-                          + (size_t)kWarps * kNumPartials * chunk);
-}
-
 template <bool kReplay>
 int launch(const float* entries, const int* counts, const float* scalars,
            float* stash, int* ndone, const float* cot, float* grad,
            int num_tiles, const Params& p, cudaStream_t stream) {
-  const size_t smem = smem_bytes(p.chunk, p.tile);
+  const size_t smem = smem_bytes(p.chunk);
   cudaError_t err = cudaFuncSetAttribute(
       blend_bwd_kernel<kReplay>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  blend_bwd_kernel<kReplay><<<num_tiles, p.tile * p.tile, smem, stream>>>(
+  blend_bwd_kernel<kReplay><<<num_tiles, kThreads, smem, stream>>>(
       entries, counts, scalars, stash, ndone, cot, grad, p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -476,7 +534,7 @@ extern "C" int lara_blend_bwd(const float* entries, const int* counts,
                               float alpha_min, float t_min, float near_cull,
                               float dist_near, float dist_far,
                               float filter2d_invsq, void* stream) {
-  if (tile * tile != 32 * kWarps) return static_cast<int>(cudaErrorInvalidValue);
+  if (tile * tile != kTilePixels) return static_cast<int>(cudaErrorInvalidValue);
   if (replay && budget / chunk > kMaxReplayChunks)
     return static_cast<int>(cudaErrorInvalidValue);
   if (!replay && (stash == nullptr || ndone == nullptr))

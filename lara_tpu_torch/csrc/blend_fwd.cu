@@ -16,22 +16,36 @@
 //
 // What bounds it on this card. At the serving budget K = 512 a view reads
 // 1024 tiles x 512 x 13 f32 = 27 MB of windows (about 8 us at 3.35 TB/s),
-// but does 256 pixels x ~40 flops and one expf per entry read: ALU and
-// transcendental work per entry-pixel dominates, not bytes.
+// but does 256 pixels x ~40 flops, one expf and one division per entry
+// read: issue slots per entry-pixel bound it, not bytes. The first version
+// (one pixel per thread, the entry as 19 scalar fields in shared memory,
+// the staging on a quarter of the block, one dependent chain per thread)
+// spent about 1.6 SM clocks per entry-pixel at the eval config.
 //
 // What the design does about it:
-//  - one 256-thread CTA per tile, one thread per pixel (grid = num tiles);
-//  - a chunk of entries is staged in shared memory, and the per-entry
-//    quantities that do not depend on the pixel (unit normal flipped toward
-//    the camera, screen center, n.c, au.c, bv.c) are computed there once per
-//    entry instead of once per pixel;
+//  - one 128-thread block per 16x16 tile, two pixels per thread (p and
+//    p + 128, rows y and y + 8): each entry is read once for two pixels,
+//    and the two pixels' hits are independent chains;
+//  - a chunk of entries is staged in shared memory as five float4 records
+//    per entry (blend_common.cuh: stage_chunk), with the per-entry values
+//    that do not depend on the pixel (unit normal flipped toward the camera,
+//    screen center, n.c, au.c, bv.c) computed there once; all threads stage,
+//    two per entry; a thread reads an entry as five broadcast 16-byte loads;
+//  - an entry with no opacity (the fine stage's deselected surfels) is
+//    skipped before its hits, a branch uniform over the block; the hits of
+//    an entry do not depend on T: both pixels' hits are computed before
+//    either composite, so the scheduler interleaves two chains; the
+//    decisions are those of the first version, taken in the same order;
 //  - each thread keeps T, the 10 accumulators and the distortion moments
-//    (A, M1, M2) in registers; T is multiplicative, T <- T (1 - alpha),
-//    which selects the same entries as the TPU kernel's log-domain `live`
-//    mask because T only decreases;
-//  - a thread that is done skips the math, and the block leaves its tile
-//    as soon as every pixel is done (__syncthreads_count), so opaque tiles
-//    read only the chunks they need.
+//    (A, M1, M2) of its two pixels in registers; T is multiplicative,
+//    T <- T (1 - alpha), which selects the same entries as the TPU kernel's
+//    log-domain `live` mask because T only decreases;
+//  - blocks take the tiles heaviest first (blend_common.cuh:
+//    tile_of_block): tiles range from empty to the full budget, and a heavy
+//    tile started in the last wave would run on while most SMs idle;
+//  - a thread whose pixels are both done leaves the chunk, and the block
+//    leaves its tile as soon as every pixel is done (__syncthreads_count),
+//    so opaque tiles read only the chunks they need.
 //
 // Stash (training; `stash` non-null). The backward kernel (blend_bwd.cu)
 // walks the processed chunks in reverse and needs, per pixel, each chunk's
@@ -48,181 +62,128 @@
 // so either gives the same gradients. With `stash` null (serving) the same
 // code writes nothing more and the outputs are bit for bit the same.
 //
-// No fast-math, and no FMA contraction (--fmad=false): the alpha >=
-// alpha_min cull and the T > 0.5 median test are threshold decisions, and
-// alpha is computed with the same correctly rounded operations, in the same
-// order, as the plain version (blend_tiles_reference) so that both take them
-// alike.
+// Rounding: see blend_common.cuh. The decisions round as the plain version
+// (blend_tiles_reference) does; the colour, depth, normal and distortion
+// sums use fmaf.
 
-#include <cuda_runtime.h>
-#include <math_constants.h>
+#include "blend_common.cuh"
 
 namespace {
 
-constexpr int kPackCols = 13;
-constexpr int kNumChannels = 10;
-// per-entry values staged in shared memory (structure of arrays)
-enum Field {
-  kN0, kN1, kN2, kC2x, kC2y, kNc, kCau, kCbv, kCz,
-  kAu0, kAu1, kAu2, kBv0, kBv1, kBv2, kR, kG, kB, kOp, kNumFields
+using namespace blend;
+
+// The accumulators and the carry of one pixel.
+struct Acc {
+  Carry c;              // T, A (the alpha channel), M1, M2
+  float r, g, b, dsum, med, nx, ny, nz, dist;
 };
 
-struct Params {
-  int tiles_x, tile, width, height, budget, chunk;
-  float alpha_min, t_min, near_cull, dist_near, dist_far, filter2d_invsq;
-};
+__device__ __forceinline__ void composite(Acc& a, const Entry& en, const Hit& h, const Params& p,
+                                          const View& v) {
+  if (!(a.c.T >= p.t_min && passes_cull(h, p))) return;
+  const float t_next = next_t(a.c.T, h.alpha);
+  if (t_next < p.t_min) {  // this pixel is saturated: it stops here
+    a.c.T = t_next;
+    return;
+  }
+  const float w = __fmul_rn(h.alpha, a.c.T);
+  a.r = fmaf(w, en.rgb.x, a.r);
+  a.g = fmaf(w, en.rgb.y, a.g);
+  a.b = fmaf(w, en.rgb.z, a.b);
+  a.dsum = fmaf(w, h.depth, a.dsum);
+  a.nx = fmaf(w, en.n.x, a.nx);
+  a.ny = fmaf(w, en.n.y, a.ny);
+  a.nz = fmaf(w, en.n.z, a.nz);
+  const float md = dist_depth(h.depth, p, v);
+  // w (m^2 A + M2 - 2 m M1) over the exclusive prefix moments
+  a.dist = fmaf(w, fmaf(-2.0f * md, a.c.M1, fmaf(md * md, a.c.A, a.c.M2)), a.dist);
+  add_moments(a.c, w, md);
+  if (a.c.T > 0.5f) a.med = h.depth;
+  a.c.T = t_next;
+}
 
-__global__ void blend_fwd_kernel(const float* __restrict__ entries,
-                                 const int* __restrict__ counts,
-                                 const float* __restrict__ scalars,
-                                 float* __restrict__ out,
-                                 float* __restrict__ stash,
-                                 int* __restrict__ ndone, Params p) {
-  extern __shared__ float sm[];  // [kNumFields][chunk]
-  const int t = blockIdx.x;
-  const int pid = threadIdx.x;
-  const int npix = blockDim.x;
+__global__ void __launch_bounds__(kThreads) blend_fwd_kernel(
+    const float* __restrict__ entries, const int* __restrict__ counts,
+    const float* __restrict__ scalars, float* __restrict__ out, float* __restrict__ stash,
+    int* __restrict__ ndone, Params p) {
+  extern __shared__ float4 rec[];  // [chunk][kRecords]
+  const int t = tile_of_block(counts, gridDim.x, p.budget);
+  const int tid = threadIdx.x;
   const int n = min(counts[t], p.budget);
+  const View v = make_view(scalars, p);
+  const Pixel q0 = make_pixel(t, tid, p, v);
+  const Pixel q1 = make_pixel(t, tid + kThreads, p, v);
+  Acc a0{}, a1{};
+  a0.c.T = a1.c.T = 1.0f;
 
-  const float fx = p.width / (2.0f * scalars[0]);
-  const float fy = p.height / (2.0f * scalars[1]);
-  const float half_w = p.width * 0.5f, half_h = p.height * 0.5f;
-  const float px = (t % p.tiles_x) * p.tile + (pid % p.tile) + 0.5f;
-  const float py = (t / p.tiles_x) * p.tile + (pid / p.tile) + 0.5f;
-  const float dx = (px - half_w) / fx;
-  const float dy = (py - half_h) / fy;
-  const float nrm_c = p.dist_far / (p.dist_far - p.dist_near);
-
-  float T = 1.0f;
-  float acc_r = 0.f, acc_g = 0.f, acc_b = 0.f, acc_a = 0.f, dsum = 0.f;
-  float med = 0.f, nx = 0.f, ny = 0.f, nz = 0.f, dist = 0.f;
-  float m1 = 0.f, m2 = 0.f;  // sum w*m and sum w*m^2 (A is acc_a)
-
-  // stash slot ci of this tile and pixel: stash[t][ci][j][pid]
+  // stash slot ci of this tile and pixel: stash[t][ci][j][pixel]
   const int slots = p.budget / p.chunk + 1;
   auto stash_carry = [&](int ci) {
-    float* s = stash + ((size_t)t * slots + ci) * 4 * npix + pid;
-    s[0] = T;
-    s[npix] = acc_a;
-    s[2 * npix] = m1;
-    s[3 * npix] = m2;
+    float* s = stash + (static_cast<size_t>(t) * slots + ci) * 4 * kTilePixels + tid;
+    auto put = [&](const Carry& c, float* sh) {
+      sh[0] = c.T;
+      sh[kTilePixels] = c.A;
+      sh[2 * kTilePixels] = c.M1;
+      sh[3 * kTilePixels] = c.M2;
+    };
+    put(a0.c, s);
+    put(a1.c, s + kThreads);
   };
 
-  const float* tile_rows = entries + (size_t)t * p.budget * kPackCols;
+  const float* tile_rows = entries + static_cast<size_t>(t) * p.budget * kPackCols;
   int ci = 0;
   for (int k0 = 0; k0 < n; k0 += p.chunk) {
     const int m = min(p.chunk, n - k0);
     if (stash != nullptr) stash_carry(ci);
     ++ci;
-    for (int j = pid; j < m; j += npix) {
-      const float* r = tile_rows + (size_t)(k0 + j) * kPackCols;
-      const float cx = r[0], cy = r[1], cz = r[2];
-      const float au0 = r[3], au1 = r[4], au2 = r[5];
-      const float bv0 = r[6], bv1 = r[7], bv2 = r[8];
-      float n0 = au1 * bv2 - au2 * bv1;
-      float n1 = au2 * bv0 - au0 * bv2;
-      float n2 = au0 * bv1 - au1 * bv0;
-      // correctly rounded sqrt and division (not rsqrtf), as the plain version
-      const float inv = 1.0f / sqrtf(n0 * n0 + n1 * n1 + n2 * n2 + 1e-20f);
-      const float sgn = (cx * n0 + cy * n1 + cz * n2 <= 0.0f) ? inv : -inv;
-      n0 *= sgn; n1 *= sgn; n2 *= sgn;
-      const float cz_safe = fabsf(cz) < 1e-6f ? 1e-6f : cz;
-      sm[kN0 * p.chunk + j] = n0;
-      sm[kN1 * p.chunk + j] = n1;
-      sm[kN2 * p.chunk + j] = n2;
-      sm[kC2x * p.chunk + j] = fx * cx / cz_safe + half_w;
-      sm[kC2y * p.chunk + j] = fy * cy / cz_safe + half_h;
-      sm[kNc * p.chunk + j] = n0 * cx + n1 * cy + n2 * cz;
-      sm[kCau * p.chunk + j] = au0 * cx + au1 * cy + au2 * cz;
-      sm[kCbv * p.chunk + j] = bv0 * cx + bv1 * cy + bv2 * cz;
-      sm[kCz * p.chunk + j] = cz;
-      sm[kAu0 * p.chunk + j] = au0;
-      sm[kAu1 * p.chunk + j] = au1;
-      sm[kAu2 * p.chunk + j] = au2;
-      sm[kBv0 * p.chunk + j] = bv0;
-      sm[kBv1 * p.chunk + j] = bv1;
-      sm[kBv2 * p.chunk + j] = bv2;
-      sm[kR * p.chunk + j] = r[9];
-      sm[kG * p.chunk + j] = r[10];
-      sm[kB * p.chunk + j] = r[11];
-      sm[kOp * p.chunk + j] = r[12];
-    }
+    stage_chunk(rec, tile_rows + static_cast<size_t>(k0) * kPackCols, m, v);
     __syncthreads();
-
-    if (T >= p.t_min) {
-      for (int j = 0; j < m; ++j) {
-        const float op = sm[kOp * p.chunk + j];
-        if (!(op > 0.0f)) continue;
-        const float n0 = sm[kN0 * p.chunk + j];
-        const float n1 = sm[kN1 * p.chunk + j];
-        const float n2 = sm[kN2 * p.chunk + j];
-        const float nd = n0 * dx + n1 * dy + n2;
-        const bool nd_ok = fabsf(nd) >= 1e-8f;
-        const float tt = sm[kNc * p.chunk + j] / (nd_ok ? nd : 1e-8f);
-        const float dau = sm[kAu0 * p.chunk + j] * dx + sm[kAu1 * p.chunk + j] * dy
-                          + sm[kAu2 * p.chunk + j];
-        const float dbv = sm[kBv0 * p.chunk + j] * dx + sm[kBv1 * p.chunk + j] * dy
-                          + sm[kBv2 * p.chunk + j];
-        const float u = tt * dau - sm[kCau * p.chunk + j];
-        const float v = tt * dbv - sm[kCbv * p.chunk + j];
-        const float rho3d = nd_ok ? u * u + v * v : CUDART_INF_F;
-        const float ex = px - sm[kC2x * p.chunk + j];
-        const float ey = py - sm[kC2y * p.chunk + j];
-        const float rho2d = p.filter2d_invsq * (ex * ex + ey * ey);
-        const bool use3d = rho3d <= rho2d;
-        const float rho = use3d ? rho3d : rho2d;
-        const float depth = use3d ? tt : sm[kCz * p.chunk + j];
-        const float alpha = fminf(0.99f, op * expf(-0.5f * rho));
-        if (!(alpha >= p.alpha_min && depth >= p.near_cull)) continue;
-
-        const float t_next = T * (1.0f - alpha);
-        if (t_next < p.t_min) {  // this pixel is saturated: stop it here
-          T = t_next;
-          break;
-        }
-        const float w = alpha * T;
-        acc_r += w * sm[kR * p.chunk + j];
-        acc_g += w * sm[kG * p.chunk + j];
-        acc_b += w * sm[kB * p.chunk + j];
-        dsum += w * depth;
-        nx += w * n0;
-        ny += w * n1;
-        nz += w * n2;
-        const float md = nrm_c * (1.0f - p.dist_near / fmaxf(depth, 1e-6f));
-        dist += w * (md * md * acc_a + m2 - 2.0f * md * m1);
-        acc_a += w;
-        m1 += w * md;
-        m2 += w * md * md;
-        if (T > 0.5f) med = depth;
-        T = t_next;
-      }
+    for (int j = 0; j < m; ++j) {
+      if (!(a0.c.T >= p.t_min || a1.c.T >= p.t_min)) break;
+      const Entry en = load_entry(rec, j);
+      if (!(en.ctr.w > 0.0f)) continue;  // never composited (the fine stage's deselected)
+      const Hit h0 = entry_hit(en, q0, p.filter2d_invsq);
+      const Hit h1 = entry_hit(en, q1, p.filter2d_invsq);
+      composite(a0, en, h0, p, v);
+      composite(a1, en, h1, p, v);
     }
     // barrier before the next chunk overwrites shared memory; the tile is
     // done once no pixel has transmittance left
-    if (__syncthreads_count(T >= p.t_min) == 0) break;
+    if (__syncthreads_count(a0.c.T >= p.t_min || a1.c.T >= p.t_min) == 0) break;
   }
   if (stash != nullptr) {
     stash_carry(ci);
-    if (pid == 0) ndone[t] = ci;
+    if (tid == 0) ndone[t] = ci;
   }
 
-  float* o = out + (size_t)t * kNumChannels * npix + pid;
-  o[0 * npix] = acc_r;
-  o[1 * npix] = acc_g;
-  o[2 * npix] = acc_b;
-  o[3 * npix] = acc_a;
-  o[4 * npix] = dsum;
-  o[5 * npix] = med;
-  o[6 * npix] = nx;
-  o[7 * npix] = ny;
-  o[8 * npix] = nz;
-  o[9 * npix] = dist;
+  float* o = out + static_cast<size_t>(t) * kNumChannels * kTilePixels + tid;
+  auto write = [&](const Acc& a, float* oh) {
+    oh[0 * kTilePixels] = a.r;
+    oh[1 * kTilePixels] = a.g;
+    oh[2 * kTilePixels] = a.b;
+    oh[3 * kTilePixels] = a.c.A;
+    oh[4 * kTilePixels] = a.dsum;
+    oh[5 * kTilePixels] = a.med;
+    oh[6 * kTilePixels] = a.nx;
+    oh[7 * kTilePixels] = a.ny;
+    oh[8 * kTilePixels] = a.nz;
+    oh[9 * kTilePixels] = a.dist;
+  };
+  write(a0, o);
+  write(a1, o + kThreads);
 }
+
+// At least this much dynamic shared memory per block, so that at most five
+// blocks share an SM: with six (80 registers allow them) the H100 ran up to
+// 14 % slower, on synthetic scenes and on a serving request's windows, and
+// no case faster.
+constexpr size_t kMinSmem = 233472 / 6 - 1024 + 16;
 
 }  // namespace
 
 // `stash` and `ndone` may be null (no stash); otherwise stash is f32
-// [num_tiles, budget/chunk + 1, 4, tile*tile] and ndone int32 [num_tiles].
+// [num_tiles, budget/chunk + 1, 4, 256] and ndone int32 [num_tiles].
+// tile must be 16.
 extern "C" int lara_blend_fwd(const float* entries, const int* counts,
                               const float* scalars, float* out, float* stash,
                               int* ndone, int num_tiles,
@@ -231,12 +192,12 @@ extern "C" int lara_blend_fwd(const float* entries, const int* counts,
                               float t_min, float near_cull, float dist_near,
                               float dist_far, float filter2d_invsq,
                               void* stream) {
+  if (tile * tile != kTilePixels) return static_cast<int>(cudaErrorInvalidValue);
   Params p{tiles_x, tile, width, height, budget, chunk,
            alpha_min, t_min, near_cull, dist_near, dist_far, filter2d_invsq};
-  const size_t smem = sizeof(float) * kNumFields * chunk;
-  blend_fwd_kernel<<<num_tiles, tile * tile, smem,
-                     static_cast<cudaStream_t>(stream)>>>(entries, counts,
-                                                          scalars, out, stash,
-                                                          ndone, p);
+  const size_t records = sizeof(float4) * kRecords * chunk;
+  const size_t smem = records > kMinSmem ? records : kMinSmem;
+  blend_fwd_kernel<<<num_tiles, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      entries, counts, scalars, out, stash, ndone, p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -32,15 +32,34 @@ from lara_tpu_torch.ops.rasterizer.types import RasterizeConfig
 
 NUM_CHANNELS = 10   # rgb3 + alpha + depth_sum + depth_med + normal3 + dist
 PACK_COLS = 13
-MAX_CHUNK = 512     # 19 staged f32 per entry must fit 48 KB of shared memory
-# the backward keeps T of every chunk entry for every pixel ([chunk, 256]
-# f32) and the per-warp partial sums in shared memory: 219 KB at 128
+MAX_CHUNK = 512     # 5 staged float4 per entry: 40 KB of shared memory at 512
+# the backward's shared memory grows with the chunk (kernel_smem): 56 KB at 128
 MAX_BWD_CHUNK = 128
-# the replay backward keeps each chunk's carry-in T of its pixel in a
+# the replay backward keeps each chunk's carry-in T of its pixels in a
 # per-thread array of this many slots (blend_bwd.cu, kMaxReplayChunks)
 MAX_REPLAY_CHUNKS = 16
 LAUNCHES = {"blend_fwd": 0, "blend_fwd_stash": 0, "blend_bwd": 0,
             "blend_bwd_replay": 0}
+# threads per block (one 16×16 tile, two pixels per thread) of each kernel
+THREADS = {"blend_fwd": 128, "blend_bwd": 128}
+RECORD = 20         # f32 per staged entry (blend_common.cuh: five float4)
+SUB = 32            # entries per sub-block of the backward: one word of hit bits
+PARTIALS = 19       # per-entry partial gradients summed over a tile's pixels
+# the forward asks for at least this much, so that at most five blocks share
+# an SM (blend_fwd.cu, kMinSmem)
+FWD_MIN_SMEM = 233472 // 6 - 1024 + 16
+
+
+def kernel_smem(chunk: int) -> dict:
+    """Dynamic shared memory per block (bytes) of each blend kernel at
+    `pallas_chunk` = chunk, as its launch asks for it (`blend_fwd.cu`: the
+    staged records, at least FWD_MIN_SMEM; `blend_bwd.cu:smem_bytes`: the staged records, each
+    sub-block's hit bits and end transmittance for the tile's 256 pixels,
+    and the per-warp partials of the chunk)."""
+    nsub = -(-chunk // SUB)
+    warps = THREADS["blend_bwd"] // 32
+    return {"blend_fwd": max(4 * RECORD * chunk, FWD_MIN_SMEM),
+            "blend_bwd": 4 * (RECORD * chunk + 2 * nsub * 256 + warps * chunk * PARTIALS)}
 
 
 def reset_launches() -> None:
@@ -86,6 +105,8 @@ def blend_fwd(entries, counts, scalars, cfg: RasterizeConfig, stash: bool = Fals
     [T, budget/chunk + 1, 4, P] (slots past ndone unwritten) and the
     processed-chunk counts ndone int32 [T]."""
     t, p = _check_inputs(entries, counts, scalars, cfg)
+    if p != 256:
+        raise ValueError("the blend kernels take 16×16 tiles")
     entries, counts, scalars = _cuda_args(entries.device, entries, counts, scalars)
     dev = entries.device
     lib = _build.build_library()["blend_fwd"]

@@ -373,3 +373,54 @@ def test_reference_stash_matches_pallas(pallas_interpret):
     for t_ in range(cfg.num_tiles):
         np.testing.assert_allclose(got.numpy()[t_, :ndone[t_]], carries[t_, :ndone[t_]],
                                    atol=2e-4)
+
+
+def cuda_case(case):
+    """Windows of one test case on the card: the random scene, opaque
+    surfels, and counts past the budget with empty tiles."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    if case == "random":
+        cfg = jax_cfg(tile_budget=128, pallas_chunk=32, dup=3)
+        arrays = make_windows(scene_np(5, 400), cfg)
+    else:
+        cfg, arrays = backward_case(case)
+    e, c, sc = (torch.from_numpy(a).cuda() for a in arrays)
+    cot = torch.from_numpy(cotangent(e.shape[0], 3)).cuda()
+    return torch_cfg(cfg), e, c, sc, cot
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "opaque", "empty_and_over_budget"])
+def test_forward_with_and_without_stash_agree_on_cuda(case):
+    """The stash forward's accumulators are the forward's, bit for bit."""
+    tcfg, e, c, sc, _ = cuda_case(case)
+    out_s, _, _ = cuda_blend.blend_fwd(e, c, sc, tcfg, stash=True)
+    assert torch.equal(out_s, cuda_blend.blend_fwd(e, c, sc, tcfg))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "opaque", "empty_and_over_budget"])
+def test_backward_is_deterministic_on_cuda(case):
+    """Two backward calls on the same inputs give the same bits (the block
+    reduction has a fixed order and no atomics)."""
+    tcfg, e, c, sc, cot = cuda_case(case)
+    _, carries, ndone = cuda_blend.blend_fwd(e, c, sc, tcfg, stash=True)
+    first = cuda_blend.blend_bwd(e, c, sc, carries, ndone, cot, tcfg)
+    assert torch.equal(first, cuda_blend.blend_bwd(e, c, sc, carries, ndone, cot, tcfg))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["opaque", "empty_and_over_budget"])
+def test_replay_backward_matches_stash_edge_cases_on_cuda(case):
+    """The replay backward against the stash path on opaque tiles (early
+    exit) and on empty and over-budget tiles: processed-chunk counts,
+    carries and gradients bit for bit."""
+    tcfg, e, c, sc, cot = cuda_case(case)
+    _, carries, ndone = cuda_blend.blend_fwd(e, c, sc, tcfg, stash=True)
+    grad = cuda_blend.blend_bwd(e, c, sc, carries, ndone, cot, tcfg)
+    grad_r, carries_r, ndone_r = cuda_blend.blend_bwd_replay(e, c, sc, cot, tcfg,
+                                                             return_carries=True)
+    assert torch.equal(ndone_r, ndone) and torch.equal(grad_r, grad)
+    used = (torch.arange(carries.shape[1], device="cuda")[None, :] <= ndone[:, None])
+    assert torch.equal(carries_r[used], carries[used])

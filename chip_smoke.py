@@ -10,8 +10,9 @@ each prints its seconds:
   2. build every kernel of `lara_tpu_torch/csrc/` (one nvcc per source,
      started together) and print each kernel's registers and spills (from
      the build logs kept beside the libraries), the blend kernels' shared
-     memory and blocks per SM, the flash kernels' dynamic shared memory and
-     (with `cuobjdump`) their HGMMA instructions; fail where ptxas
+     memory and blocks per SM at chunk 64 and budgets 128 and 512 (the
+     replay's grows with the budget), the flash kernels' dynamic shared
+     memory and (with `cuobjdump`) their HGMMA instructions; fail where ptxas
      serialised a wgmma;
   3. forward kernel vs plain version (`blend_tiles_reference`) on a random
      524,288-surfel scene at 512², binned at the train (budget 128) and eval
@@ -23,9 +24,10 @@ each prints its seconds:
      counts equal, stashed carries, per-column gradient error, the stash
      forward's accumulators bit for bit those of the plain forward kernel;
      and `blend_bwd_replay` on the same inputs: replayed carries, ndone and
-     gradients bit for bit those of the stash path; two backward calls
-     equal bit for bit; queued device ms of the kernels and of their plain
-     versions;
+     gradients bit for bit those of the stash path, also at budget 512 /
+     chunk 64 and at budget 256 / chunk 8 (32 chunks per tile); two
+     backward calls equal bit for bit; queued device ms of the kernels and
+     of their plain versions;
   5. flash attention at the ViT's shapes [4, 1025, 12, 64] (serving) and
      [12, 1025, 12, 64] (train) in bf16, a ragged L=200 case with a
      kv_mask, head_dims 16, 48, 80, 96, 112 and 128 at L=257, and f32 at
@@ -45,10 +47,11 @@ each prints its seconds:
      statistics) at the train (K 128, V 131,072) and eval (K 512,
      V 262,144) raster configs: (a) the window kernel `tile_windows`
      against its plain version bit for bit on the real sorted keys and
-     starts, and with every window past the keys or partly past them;
-     device ms of the kernel, the plain version and one `padded[flat]`
-     gather; (b) `bin_view` in bin_mode "sort" and "count" and pack_mode
-     "fused": counts, validity and windows equal; (c) the blend kernel on
+     starts (and at K 13), and with every window past the keys or partly
+     past them; device ms of the kernel, of an empty kernel (the floor of a
+     queued launch), the plain version and one `padded[flat]` gather; (b)
+     `bin_view` in bin_mode "sort" and "count" and pack_mode "fused":
+     counts, validity and windows equal; (c) the blend kernel on
      the three modes' windows, accumulators bit for bit, and the blend
      forward timed at these trained statistics; (d) one serving request
      each with bin_mode "count" and pack_mode "fused" on the serving
@@ -80,9 +83,10 @@ tensor cores; 67 TFLOP/s f32 outside them for the blend), at the H100 SXM's
 published rates. The blend's work depends on the data, so it is counted on
 this run's windows: entry-pixel pairs of processed chunks
 Σ_t min(n_t, ndone_t·C)·256, times the operations per pair in the kernel
-sources (forward ~40 flops and one expf; the backward twice that plus ~60;
-the replay once more the forward's). The window kernel is a copy: its bytes
-are the key words its windows cover, the starts and the windows written.
+sources (forward ~40 flops and one expf; the backward, from the stash or
+replaying, twice that plus ~60: BLEND_OPS). The window kernel is a copy:
+its bytes are the key words its windows cover, the starts and the windows
+written.
 """
 
 from __future__ import annotations
@@ -164,8 +168,15 @@ FLASH_BLOCKED_REL_L2, FLASH_BLOCKED_MAX = 2.0 ** -9, 2.0 ** -7
 # the mean within 5e-3 and all but 0.1% of the values within 0.1
 SLICE_FLASH_MEAN, SLICE_FLASH_Q999 = 5e-3, 0.1
 HBM_BYTES_PER_S, BF16_TC_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
-# operations per processed entry-pixel in the blend kernels' source notes
-BLEND_OPS = {"fwd": 41, "bwd": 142, "replay": 183}
+# operations per processed entry-pixel in the blend kernels' sources: the
+# forward's hit, decisions and sums, 41; the backward from the stash walks
+# each chunk forward from its carry-in (the hit and decisions, counted as the
+# forward's 41), then in reverse the hit again (41) with the derivatives and
+# its share of the reduction (60): 41 + 41 + 60 = 142. The replay walks the
+# tile forward once (the hit, decisions and moments, counted as the
+# forward's 41, whose colour sums are the larger), then the same reverse
+# walk and reduction (41 + 60): 41 + 41 + 60 = 142
+BLEND_OPS = {"fwd": 41, "bwd": 142, "replay": 41 + 41 + 60}
 
 
 def nvidia_smi_line() -> str:
@@ -332,9 +343,13 @@ def build_phase_report() -> None:
     for name, r in resources.items():
         print(f"[build] {name}: {r['registers']} registers, spill stores "
               f"{r['spill_stores']} B, spill loads {r['spill_loads']} B")
-    for lib, (threads, smem, regs, blocks) in blend_occupancy(resources, 64).items():
-        print(f"[build] {lib}: {threads} threads, {smem} B dynamic shared memory per block "
-              f"at chunk 64, {regs} registers: {blocks} blocks per SM")
+    for budget in (128, 512):
+        for name, (threads, smem, regs, blocks) in blend_occupancy(resources, 64,
+                                                                   budget).items():
+            r = resources[name]
+            print(f"[build] {name}: {threads} threads, {smem} B shared memory (dynamic and "
+                  f"static) per block at budget {budget} chunk 64, {regs} registers, spill stores "
+                  f"{r['spill_stores']} B loads {r['spill_loads']} B: {blocks} blocks per SM")
     for hd in (64, 128):
         print(f"[build] flash bf16 dynamic shared memory per CTA at head_dim {hd}: "
               + ", ".join(f"{k} {v} bytes" for k, v in flash.kernel_smem(hd).items()))
@@ -344,17 +359,19 @@ def build_phase_report() -> None:
     print("[build] no wgmma serialised (ptxas C7514 / C7515 / C7519 / C7520)")
 
 
-def blend_occupancy(resources: dict, chunk: int) -> dict:
+def blend_occupancy(resources: dict, chunk: int, budget: int) -> dict:
     """{kernel: (threads, shared memory bytes, registers, blocks per SM)}
-    of each blend kernel at `chunk`, its registers from the build log."""
-    smem = cuda_blend.kernel_smem(chunk)
+    of each blend kernel at `chunk` and `budget`: its dynamic shared memory
+    as the launch asks for it plus its static shared memory, and its
+    registers, from the build log."""
+    smem = cuda_blend.kernel_smem(chunk, budget)
     out = {}
     for name, r in resources.items():
-        lib = name.split("_kernel")[0]
-        if lib in smem:
-            threads = cuda_blend.THREADS[lib]
-            out[name] = (threads, smem[lib], r["registers"],
-                         _build.blocks_per_sm(r["registers"], smem[lib], threads))
+        lib = cuda_blend.KERNELS.get(name)
+        if lib is not None:
+            threads, block_smem = cuda_blend.THREADS[lib], smem[lib] + r["static_smem"]
+            out[name] = (threads, block_smem, r["registers"],
+                         _build.blocks_per_sm(r["registers"], block_smem, threads))
     return out
 
 
@@ -486,19 +503,7 @@ def backward_case(name, entries, counts, scalars, cfg, seed, timed=False):
     res = {"max_abs_err": max(col_err), "flips": flips,
            "fwd_max_abs_err": max(e_ for c, e_ in enumerate(fwd_err.tolist()) if c != 5)}
 
-    # the replay backward rebuilds the stash path's carries and gradients
-    # bit for bit (slots 0..ndone are the written ones)
-    grad_r, carries_r, ndone_r = cuda_blend.blend_bwd_replay(
-        entries, counts, scalars, cot, cfg, return_carries=True)
-    torch.cuda.synchronize()
-    used4 = used[..., None]
-    same = {"ndone": torch.equal(ndone_r, ndone),
-            "carries": torch.equal(torch.where(used4, carries_r, 0.0),
-                                   torch.where(used4, carries, 0.0)),
-            "gradients": torch.equal(grad_r, grad)}
-    print(f"[replay] {name}: replay vs stash bit for bit: {same}")
-    if not all(same.values()):
-        raise AssertionError(f"{name}: the replay backward differs from the stash path: {same}")
+    replay_case(name, entries, counts, scalars, cfg, cot, (carries, ndone, grad))
     if timed:
         pairs = blend_pairs(counts, ndone, cfg)
         res["bwd_ms"] = queued_ms(lambda: cuda_blend.blend_bwd(
@@ -528,6 +533,33 @@ def backward_case(name, entries, counts, scalars, cfg, seed, timed=False):
     return res
 
 
+def replay_case(name, entries, counts, scalars, cfg, cot, stash_path=None) -> None:
+    """The replay backward rebuilds the stash path's processed-chunk counts,
+    carries (slots 0..ndone, the written ones) and gradients bit for bit;
+    `stash_path` is (carries, ndone, grad) of the stash forward + backward
+    when the caller has them."""
+    if stash_path is None:
+        _, carries, ndone = cuda_blend.blend_fwd(entries, counts, scalars, cfg, stash=True)
+        grad = cuda_blend.blend_bwd(entries, counts, scalars, carries, ndone, cot, cfg)
+    else:
+        carries, ndone, grad = stash_path
+    grad_r, carries_r, ndone_r = cuda_blend.blend_bwd_replay(
+        entries, counts, scalars, cot, cfg, return_carries=True)
+    torch.cuda.synchronize()
+    used = (torch.arange(carries.shape[1], device=entries.device)[None, :]
+            <= ndone[:, None])[:, :, None, None]
+    same = {"ndone": torch.equal(ndone_r, ndone),
+            "carries": torch.equal(torch.where(used, carries_r, 0.0),
+                                   torch.where(used, carries, 0.0)),
+            "gradients": torch.equal(grad_r, grad)}
+    print(f"[replay] {name}: budget {cfg.tile_budget} chunk {cfg.pallas_chunk} "
+          f"({cfg.tile_budget // cfg.pallas_chunk} chunks, up to {int(ndone.max())} processed, "
+          f"{cuda_blend.kernel_smem(cfg.pallas_chunk, cfg.tile_budget)['blend_bwd_replay']} B of "
+          f"shared memory per block): replay vs stash bit for bit: {same}")
+    if not all(same.values()):
+        raise AssertionError(f"{name}: the replay backward differs from the stash path: {same}")
+
+
 def backward_phase(dev) -> dict:
     """The kernels of a training render at the train raster config: the
     stash forward, the backward from the stash, and the replay backward."""
@@ -539,6 +571,15 @@ def backward_phase(dev) -> dict:
     results["opaque"] = backward_case("opaque", *windows(opaque_stack(dev), cfg, cam), cfg, 3)
     corner = random_scene(4096, 1, dev, corner=True)
     results["empty_tiles"] = backward_case("empty_tiles", *windows(corner, cfg, cam), cfg, 4)
+    # the replay at the eval budget, and at 32 chunks per tile
+    scene = random_scene(N_SURFELS, 0, dev)
+    for seed, (budget, chunk, visible) in enumerate(((512, 64, 262144), (256, 8, 131072)), 5):
+        cfg = RasterizeConfig(height=H, width=W, tile=16, dup=3, tile_budget=budget,
+                              visible_budget=visible, pallas_chunk=chunk)
+        entries, counts, scalars = windows(scene, cfg, cam)
+        gen = torch.Generator().manual_seed(seed)
+        cot = torch.randn((cfg.num_tiles, cuda_blend.NUM_CHANNELS, 256), generator=gen).to(dev)
+        replay_case(f"budget{budget}_chunk{chunk}", entries, counts, scalars, cfg, cot)
     return results
 
 
@@ -752,6 +793,15 @@ def workload_scene(dev):
             rotation_activation(quats))
 
 
+def sorted_slot_keys(g, cfg) -> tuple:
+    """The binning's sorted slot keys [M] of projected surfels and each
+    tile's first position in them [T]: the window kernel's inputs."""
+    order_v = torch.argsort(torch.where(g.valid, g.depth, torch.inf),
+                            stable=True)[:cfg.visible_budget]
+    sorted_keys = torch.sort(slot_keys(_pack_tile_bounds(g, cfg)[order_v], cfg)).values
+    return sorted_keys, tile_ranges(sorted_keys, cfg)[0]
+
+
 def window_bytes(starts, m: int, k: int) -> int:
     """Bytes the window extraction must move: the key words its windows
     cover (each once: neighbouring windows overlap where a tile holds fewer
@@ -764,22 +814,24 @@ def window_bytes(starts, m: int, k: int) -> int:
 
 def windows_case(name, sorted_keys, starts, k) -> dict:
     """`tile_windows` against its plain version, bit for bit, on the main
-    path's sorted keys and starts, with every window at the end of the keys
+    path's sorted keys and starts (at K = k, with 16-byte stores, and at
+    K = 13, one word per lane), with every window at the end of the keys
     (all sentinels), and with a ragged count of windows that run partly
-    past the keys; device ms of the kernel, the plain version and the
+    past the keys; device ms of the kernel, of a kernel that does nothing
+    (the floor of any queued launch), of the plain version and of the
     one-gather library call, and the bound."""
     m = sorted_keys.shape[0]
     gen = torch.Generator().manual_seed(k)
-    cases = {"main path": starts,
-             "all past the keys": torch.full_like(starts, m),
-             "partly past the keys": torch.sort(
-                 m - torch.randint(0, k, (1021,), generator=gen)).values.to(starts)}
-    for case, st in cases.items():
-        got = cuda_windows.tile_windows(sorted_keys, st, k)
-        want = cuda_windows.tile_windows_reference(sorted_keys, st, k)
+    cases = {"main path": (starts, k), "main path, K 13": (starts, 13),
+             "all past the keys": (torch.full_like(starts, m), k),
+             "partly past the keys": (torch.sort(
+                 m - torch.randint(0, k, (1021,), generator=gen)).values.to(starts), k)}
+    for case, (st, kk) in cases.items():
+        got = cuda_windows.tile_windows(sorted_keys, st, kk)
+        want = cuda_windows.tile_windows_reference(sorted_keys, st, kk)
         torch.cuda.synchronize()
         same = torch.equal(got, want)
-        print(f"[binning] {name} windows, {case}: T {st.numel()} K {k}, sentinel share "
+        print(f"[binning] {name} windows, {case}: T {st.numel()} K {kk}, sentinel share "
               f"{(want == cuda_windows.INT32_MAX).float().mean().item():.4f}, kernel equal "
               f"to the plain version bit for bit: {same}")
         if not same:
@@ -787,6 +839,7 @@ def windows_case(name, sorted_keys, starts, k) -> dict:
     padded = torch.cat([sorted_keys, sorted_keys.new_full((k,), cuda_windows.INT32_MAX)])
     flat = starts[:, None] + torch.arange(k, dtype=torch.int32, device=starts.device)
     res = {"max_abs_err": 0.0,
+           "floor_ms": queued_ms(lambda: torch.cuda._sleep(0)),
            "ms": queued_ms(lambda: cuda_windows.tile_windows(sorted_keys, starts, k)),
            "plain_ms": queued_ms(
                lambda: cuda_windows.tile_windows_reference(sorted_keys, starts, k)),
@@ -794,9 +847,11 @@ def windows_case(name, sorted_keys, starts, k) -> dict:
            "launch_ms": median_ms(lambda: cuda_windows.tile_windows(sorted_keys, starts, k), 30)}
     res["bound_ms"], res["bound_by"] = bound(window_bytes(starts, m, k), 0, F32_FLOPS)
     print(f"[binning] {name} windows: device ms per call (queued) kernel {res['ms']:.5f} "
-          f"plain {res['plain_ms']:.5f} padded[flat] {res['library_ms']:.5f}; one call "
-          f"alone between events {res['launch_ms']:.5f}; bound {res['bound_ms']:.5f} ms "
-          f"({res['bound_by']}), kernel at {res['bound_ms'] / res['ms']:.3f} of it")
+          f"empty kernel (floor) {res['floor_ms']:.5f} plain {res['plain_ms']:.5f} "
+          f"padded[flat] {res['library_ms']:.5f}; one call alone between events "
+          f"{res['launch_ms']:.5f}; bound {res['bound_ms']:.5f} ms ({res['bound_by']}), "
+          f"kernel at {res['bound_ms'] / res['ms']:.3f} of it, "
+          f"{(res['ms'] - res['floor_ms']) * 1e3:.3f} us over the floor")
     return res
 
 
@@ -849,9 +904,7 @@ def binning_phase(dev, serving: dict) -> dict:
         cfg = RasterizeConfig(height=H, width=W, tile=16, dup=3, tile_budget=budget,
                               visible_budget=visible, pallas_chunk=min(64, budget))
         g, overflow = preprocess_surfels(*scene, cam, cfg, return_overflow=True)
-        order_v = torch.argsort(torch.where(g.valid, g.depth, torch.inf), stable=True)[:visible]
-        sorted_keys = torch.sort(slot_keys(_pack_tile_bounds(g, cfg)[order_v], cfg)).values
-        starts, _ = tile_ranges(sorted_keys, cfg)
+        sorted_keys, starts = sorted_slot_keys(g, cfg)
         print(f"[binning] {name}: lara_workload {N_SURFELS} surfels, {int(g.valid.sum())} "
               f"valid, radius_overflow_frac {overflow.item():.6f} at dup {cfg.dup}; "
               f"M {sorted_keys.numel()} keys")

@@ -45,14 +45,15 @@
 // (with the cz_safe guard), and the normal's normalisation and its flip
 // toward the camera into the 13 columns of the row.
 //
-// Decisions and precision. Which entries a pixel composited is decided once
-// per chunk, by a forward walk from the chunk's stashed carry-in with the
-// forward kernel's decisions and carry update (blend_common.cuh), so alpha,
-// the alpha >= alpha_min cull, the T * (1 - alpha) >= transmittance_min test
-// and the 3D/2D switch decide exactly as in the forward; the walk keeps one
-// bit per entry and pixel, and T after the last entry composited at the end
-// of every 32-entry sub-block. The reverse walk then recovers T_k of each
-// composited entry from the T after it by one division by (1 - alpha_k):
+// Decisions and precision. Which entries a pixel composited is decided once,
+// by a forward walk (per chunk from its stashed carry-in, or in replay mode
+// over the whole tile) with the forward kernel's decisions and carry update
+// (blend_common.cuh), so alpha, the alpha >= alpha_min cull, the
+// T * (1 - alpha) >= transmittance_min test and the 3D/2D switch decide
+// exactly as in the forward; the walk keeps one bit per entry and pixel, and
+// T after the last entry composited at the end of every 32-entry sub-block.
+// The reverse walk then recovers T_k of each composited entry from the T
+// after it by one division by (1 - alpha_k):
 // the forward rounded T_k (1 - alpha_k) once with the same (1 - alpha_k), so
 // each step is within two roundings, and the error of a sub-block's at most
 // 32 steps stays under 1e-5 relative, far inside the gradient bar
@@ -82,10 +83,11 @@
 //    and lane l ends with the warp's total of partial slot19(l); the order
 //    of every sum is fixed and there are no atomics, so two calls agree bit
 //    for bit; an entry no lane of the warp composited skips it;
-//  - no T_k buffer: the hit bits and the sub-block end values take 2 KB at
-//    chunk 64, so shared memory per block falls from 108 KB to 28 KB
-//    (staged records 5 KB, bits and end values 2 KB, the per-warp partials
-//    of the chunk [4][chunk][19] 19 KB), and registers, not shared memory,
+//  - no T_k buffer: the hit bits and the sub-block end values of a chunk
+//    take 2 x ceil(chunk / 32) x 256 x 4 B, 4 KB at chunk 64, so shared
+//    memory per block falls from 108 KB to 28 KB (staged records 5,120 B,
+//    bits and end values 4,096 B, the per-warp partials of the chunk
+//    [4][chunk][19] 19,456 B: 28,672 B), and registers, not shared memory,
 //    set the blocks per SM (__launch_bounds__ asks for four: 16 warps of
 //    two pixels each); a sub-block re-walk into a [16, 256] T_k buffer
 //    (45 KB per block) was measured first and was slower;
@@ -101,19 +103,29 @@
 // registers) ran faster on the random scene of the coarse decoder at init
 // and slower on the trained-statistics scene, on the H100; four are kept.
 //
-// Replay mode (stash null on input). The tile first walks its chunks
-// forward from (T = 1, A = M1 = M2 = 0) with the forward kernel's exit rule
-// (a pixel stops at the entry with T (1 - alpha) < transmittance_min, the
-// tile after the chunk where no pixel has T >= transmittance_min left, or
-// when the count runs out) and its exact operations, so every carry-in, the
+// Replay mode (stash null on input). The tile walks its chunks forward once
+// from (T = 1, A = M1 = M2 = 0), with the forward kernel's exit rules (a
+// pixel stops at the entry with T (1 - alpha) < transmittance_min, the tile
+// after the chunk where no pixel has T >= transmittance_min left, or when
+// the count runs out) and its exact operations, so every carry-in, the
 // final carry and the processed-chunk count ndone are bit for bit those the
-// stash forward writes; then the reverse walk runs unchanged, with the
-// totals (A, M1, M2) from the final carry. Each thread keeps its pixels'
-// carry-in T per chunk in per-thread arrays of kMaxReplayChunks slots
-// (local memory, cached in L1) and the final (A, M1, M2) in registers.
-// budget/chunk above kMaxReplayChunks is refused. With the optional outputs
-// non-null the replay also writes what it rebuilt, in the stash forward's
-// layout, for a check against the stash path.
+// stash forward writes. It is the stash mode's paired walk (walk_chunk),
+// which here also adds the moments (A, M1, M2) of every composited entry,
+// and it keeps the hit bits and end values of every sub-block of every
+// processed chunk in shared memory, [budget/chunk][ceil(chunk/32)][256]
+// each: 2 x budget/chunk x ceil(chunk/32) KB, 8 KB at budget 128 and chunk
+// 64 (32,768 B per block), 32 KB at budget 512 (57,344 B per block: four
+// blocks and the 1 KB the SM reserves for each fill its 233,472 B exactly,
+// so the kernel declares no static shared memory; with tile_of_block's 20 B
+// of it three blocks fit, and the eval replay ran at 0.77 ms, not 0.53, on
+// the H100). The reverse walk then runs chunk by chunk from those bits, with
+// the totals (A, M1, M2) from the final carry, so each entry-pixel's hit is
+// computed once forward and, where the pixel composited the entry, once in
+// reverse, as in the stash mode. Bits past a pixel's stop are 0. The launch
+// is refused only where the block's shared memory (smem_bytes) exceeds
+// 232,448 B. With the optional outputs non-null the replay also writes what
+// it rebuilt, in the stash forward's layout, for a check against the stash
+// path.
 
 #include "blend_common.cuh"
 
@@ -123,7 +135,6 @@ using namespace blend;
 
 constexpr int kWarps = kThreads / 32;
 constexpr int kSub = 32;              // entries per sub-block: one word of hit bits
-constexpr int kMaxReplayChunks = 16;  // cuda_blend.MAX_REPLAY_CHUNKS
 constexpr int kPartials = 19;
 // per-entry partial gradients, summed over the tile's pixels
 enum Partial {
@@ -179,17 +190,72 @@ struct PixelGrad {
 };
 
 // One decision of the forward walk, from the entry-pixel's hit: whether the
-// pixel composites the entry; T after it; and Tc, T after the last entry it
-// composited (T but for the entry that saturates the pixel, which it does
-// not composite).
-__device__ __forceinline__ bool decide(const Entry& en, const Hit& h, float& T, float& Tc,
-                                       const Params& p) {
-  if (!(T >= p.t_min && en.ctr.w > 0.0f && passes_cull(h, p))) return false;
-  const float t_next = next_t(T, h.alpha);
-  T = t_next;  // a saturating entry leaves T below t_min: no more hits
-  if (t_next < p.t_min) return false;
+// pixel composites the entry; the carry after it (T, and with kMoments the
+// moments, in the stash forward's operations); and Tc, T after the last
+// entry it composited (T but for the entry that saturates the pixel, which
+// it does not composite).
+template <bool kMoments>
+__device__ __forceinline__ bool decide(const Entry& en, const Hit& h, Carry& c, float& Tc,
+                                       const Params& p, const View& v) {
+  if (!(c.T >= p.t_min && en.ctr.w > 0.0f && passes_cull(h, p))) return false;
+  const float t_next = next_t(c.T, h.alpha);
+  if (t_next < p.t_min) {  // a saturating entry leaves T below t_min: no more hits
+    c.T = t_next;
+    return false;
+  }
+  if constexpr (kMoments) add_moments(c, __fmul_rn(h.alpha, c.T), dist_depth(h.depth, p, v));
+  c.T = t_next;
   Tc = t_next;
   return true;
+}
+
+// The forward walk over the m staged entries of one chunk, from the carry c
+// and Tc of the thread's two pixels q0, q1: per 32-entry sub-block sb, the
+// hit bits of each pixel into hits[sb][256] and Tc at the sub-block's end
+// into tend[sb][256] (pixel tid and tid + 128). Two entries at a time: their
+// four hits before the four decisions, each pixel's in entry order, so the
+// scheduler has four independent chains between two T updates. A pair with
+// no opacity (the fine stage's deselected surfels) records no hit without
+// computing one. A pixel that has stopped decides nothing more; skipping
+// the pairs met when both of a thread's pixels have stopped made both modes
+// slower on the H100, on the random and the trained-statistics scenes, so
+// the hits are computed.
+template <bool kMoments>
+__device__ __forceinline__ void walk_chunk(const float4* rec, int m, const Pixel& q0,
+                                           const Pixel& q1, Carry (&c)[2], float (&Tc)[2],
+                                           unsigned* hits, float* tend, const Params& p,
+                                           const View& v) {
+  const int tid = threadIdx.x;
+  unsigned bits0 = 0u, bits1 = 0u;
+  auto record = [&](int j, bool hit0, bool hit1) {
+    bits0 |= static_cast<unsigned>(hit0) << (j % kSub);
+    bits1 |= static_cast<unsigned>(hit1) << (j % kSub);
+    if (j % kSub == kSub - 1 || j == m - 1) {
+      const int at = (j / kSub) * kTilePixels + tid;
+      hits[at] = bits0;
+      hits[at + kThreads] = bits1;
+      tend[at] = Tc[0];
+      tend[at + kThreads] = Tc[1];
+      bits0 = bits1 = 0u;
+    }
+  };
+  for (int j = 0; j < m; j += 2) {
+    const Entry e0 = load_entry(rec, j), e1 = load_entry(rec, min(j + 1, m - 1));
+    if (!(e0.ctr.w > 0.0f) && !(j + 1 < m && e1.ctr.w > 0.0f)) {
+      record(j, false, false);
+      if (j + 1 < m) record(j + 1, false, false);
+      continue;
+    }
+    const Hit h00 = entry_hit(e0, q0, p.filter2d_invsq);
+    const Hit h01 = entry_hit(e0, q1, p.filter2d_invsq);
+    const Hit h10 = entry_hit(e1, q0, p.filter2d_invsq);
+    const Hit h11 = entry_hit(e1, q1, p.filter2d_invsq);
+    record(j, decide<kMoments>(e0, h00, c[0], Tc[0], p, v),
+           decide<kMoments>(e0, h01, c[1], Tc[1], p, v));
+    if (j + 1 < m)
+      record(j + 1, decide<kMoments>(e1, h10, c[0], Tc[0], p, v),
+             decide<kMoments>(e1, h11, c[1], Tc[1], p, v));
+  }
 }
 
 // The partials of one composited entry-pixel, added into d; S moves past
@@ -294,11 +360,20 @@ __device__ __forceinline__ void chain_row(const float (&d)[kPartials], const flo
   out[12] = d[dOp];
 }
 
-// Shared memory of one block, in bytes (cuda_blend.kernel_smem mirrors it).
-size_t smem_bytes(int chunk) {
-  const int nsub = (chunk + kSub - 1) / kSub;
+// Chunks whose hit bits and end values a block keeps: one in stash mode,
+// every chunk of the budget in replay mode.
+__host__ __device__ inline int kept_chunks(int budget, int chunk, bool replay) {
+  return replay ? budget / chunk : 1;
+}
+
+// Shared memory of one block, in bytes (cuda_blend.kernel_smem mirrors it):
+// the staged records, the kept chunks' hit bits and end values, the
+// per-warp partials of a chunk.
+size_t smem_bytes(int budget, int chunk, bool replay) {
+  const size_t nsub = (chunk + kSub - 1) / kSub;
   return sizeof(float4) * kRecords * chunk
-         + sizeof(float) * ((size_t)2 * nsub * kTilePixels + (size_t)kWarps * chunk * kPartials);
+         + sizeof(float) * (2 * kept_chunks(budget, chunk, replay) * nsub * kTilePixels
+                            + (size_t)kWarps * chunk * kPartials);
 }
 
 // kReplay false: stash and ndone_arr are the stash forward's outputs, read.
@@ -311,12 +386,14 @@ __global__ void __launch_bounds__(kThreads, 4) blend_bwd_kernel(
   extern __shared__ float4 smem4[];
   const int c = p.chunk;
   const int nsub = (c + kSub - 1) / kSub;
+  const int kept = kept_chunks(p.budget, c, kReplay);
   float4* rec = smem4;                                               // [chunk][kRecords]
-  unsigned* hits = reinterpret_cast<unsigned*>(rec + c * kRecords);  // [nsub][256] hit bits
-  float* tend = reinterpret_cast<float*>(hits + nsub * kTilePixels); // [nsub][256] end Tc
-  float* red = tend + nsub * kTilePixels;                            // [kWarps][chunk][19]
+  unsigned* hits = reinterpret_cast<unsigned*>(rec + c * kRecords);  // [kept][nsub][256] bits
+  float* tend = reinterpret_cast<float*>(hits + kept * nsub * kTilePixels);  // and end Tc
+  float* red = tend + kept * nsub * kTilePixels;                     // [kWarps][chunk][19]
 
-  const int t = tile_of_block(counts, gridDim.x, p.budget);
+  // the partials' buffer is first written after the staging's barrier
+  const int t = tile_of_block(counts, gridDim.x, p.budget, reinterpret_cast<int*>(red));
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int slot = slot19(lane);
@@ -345,10 +422,10 @@ __global__ void __launch_bounds__(kThreads, 4) blend_bwd_kernel(
   }
 
   int ndone;
-  float t_in[2][kReplay ? kMaxReplayChunks : 1];  // replay: carry-in T per chunk
   if constexpr (kReplay) {
-    // the forward kernel's walk, without its colour sums
+    // the forward kernel's walk, without its colour sums, over every chunk
     Carry cr[2] = {{1.0f, 0.0f, 0.0f, 0.0f}, {1.0f, 0.0f, 0.0f, 0.0f}};
+    float Tc[2] = {1.0f, 1.0f};
     auto put_carry = [&](int ci) {
       if (st != nullptr) {
 #pragma unroll
@@ -363,28 +440,12 @@ __global__ void __launch_bounds__(kThreads, 4) blend_bwd_kernel(
     };
     int ci = 0;
     for (int k0 = 0; k0 < n; k0 += c) {
-      const int m = min(c, n - k0);
-      t_in[0][ci] = cr[0].T;
-      t_in[1][ci] = cr[1].T;
       put_carry(ci);
-      ++ci;
-      stage_chunk(rec, tile_rows + static_cast<size_t>(k0) * kPackCols, m, v);
+      stage_chunk(rec, tile_rows + static_cast<size_t>(k0) * kPackCols, min(c, n - k0), v);
       __syncthreads();
-      for (int j = 0; j < m; ++j) {
-        if (!(cr[0].T >= p.t_min || cr[1].T >= p.t_min)) break;
-        const Entry en = load_entry(rec, j);
-        if (!(en.ctr.w > 0.0f)) continue;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const Hit hit = entry_hit(en, s[h].q, p.filter2d_invsq);
-          if (cr[h].T >= p.t_min && passes_cull(hit, p)) {
-            const float t_next = next_t(cr[h].T, hit.alpha);
-            if (t_next >= p.t_min)
-              add_moments(cr[h], __fmul_rn(hit.alpha, cr[h].T), dist_depth(hit.depth, p, v));
-            cr[h].T = t_next;
-          }
-        }
-      }
+      const int at = ci * nsub * kTilePixels;
+      walk_chunk<true>(rec, min(c, n - k0), s[0].q, s[1].q, cr, Tc, hits + at, tend + at, p, v);
+      ++ci;
       // also the barrier before the next staging (here or in the reverse walk)
       if (__syncthreads_count(cr[0].T >= p.t_min || cr[1].T >= p.t_min) == 0) break;
     }
@@ -418,51 +479,26 @@ __global__ void __launch_bounds__(kThreads, 4) blend_bwd_kernel(
     stage_chunk(rec, tile_rows + static_cast<size_t>(k0) * kPackCols, m, v);
     __syncthreads();
 
-    // forward walk of the chunk from its carry-in, with the forward's
-    // decisions: per sub-block, which entries each pixel composited (one bit
-    // each) and Tc at its end
-    float T[2], Tc[2];
+    // which entries each pixel composited (one bit each) and Tc at the end
+    // of each sub-block: in stash mode from a walk of the chunk from its
+    // carry-in, in replay mode kept from the tile's walk
+    const int base = kReplay ? ci * nsub * kTilePixels : 0;
+    if constexpr (!kReplay) {
+      Carry cw[2];
+      float Tc[2];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      T[h] = kReplay ? t_in[h][ci] : st[(ci * 4) * kTilePixels + h * kThreads];
-      Tc[h] = T[h];
-    }
-    unsigned bits0 = 0u, bits1 = 0u;
-    auto record = [&](int j, bool hit0, bool hit1) {
-      bits0 |= static_cast<unsigned>(hit0) << (j % kSub);
-      bits1 |= static_cast<unsigned>(hit1) << (j % kSub);
-      if (j % kSub == kSub - 1 || j == m - 1) {
-        const int at = (j / kSub) * kTilePixels + tid;
-        hits[at] = bits0;
-        hits[at + kThreads] = bits1;
-        tend[at] = Tc[0];
-        tend[at + kThreads] = Tc[1];
-        bits0 = bits1 = 0u;
+      for (int h = 0; h < 2; ++h) {
+        cw[h].T = Tc[h] = st[(ci * 4) * kTilePixels + h * kThreads];
+        cw[h].A = cw[h].M1 = cw[h].M2 = 0.0f;
       }
-    };
-    // two entries at a time: their four hits before the four decisions,
-    // each pixel's in entry order
-    for (int j = 0; j < m; j += 2) {
-      const Entry e0 = load_entry(rec, j), e1 = load_entry(rec, min(j + 1, m - 1));
-      if (!(e0.ctr.w > 0.0f) && !(j + 1 < m && e1.ctr.w > 0.0f)) {  // no opacity: no hits
-        record(j, false, false);
-        if (j + 1 < m) record(j + 1, false, false);
-        continue;
-      }
-      const Hit h00 = entry_hit(e0, s[0].q, p.filter2d_invsq);
-      const Hit h01 = entry_hit(e0, s[1].q, p.filter2d_invsq);
-      const Hit h10 = entry_hit(e1, s[0].q, p.filter2d_invsq);
-      const Hit h11 = entry_hit(e1, s[1].q, p.filter2d_invsq);
-      record(j, decide(e0, h00, T[0], Tc[0], p), decide(e0, h01, T[1], Tc[1], p));
-      if (j + 1 < m)
-        record(j + 1, decide(e1, h10, T[0], Tc[0], p), decide(e1, h11, T[1], Tc[1], p));
+      walk_chunk<false>(rec, m, s[0].q, s[1].q, cw, Tc, hits, tend, p, v);
     }
 
     // reverse walk, a sub-block at a time from its end's Tc: T_k of each
     // composited entry by division, per-entry partials summed over the two
     // pixels, then over the warp
     for (int j0 = ((m - 1) / kSub) * kSub; j0 >= 0; j0 -= kSub) {
-      const int at = (j0 / kSub) * kTilePixels + tid;
+      const int at = base + (j0 / kSub) * kTilePixels + tid;
       const unsigned w0 = hits[at], w1 = hits[at + kThreads];
       float tc0 = tend[at], tc1 = tend[at + kThreads];
       for (int j = min(m, j0 + kSub) - 1; j >= j0; --j) {
@@ -510,7 +546,7 @@ template <bool kReplay>
 int launch(const float* entries, const int* counts, const float* scalars,
            float* stash, int* ndone, const float* cot, float* grad,
            int num_tiles, const Params& p, cudaStream_t stream) {
-  const size_t smem = smem_bytes(p.chunk);
+  const size_t smem = smem_bytes(p.budget, p.chunk, kReplay);
   cudaError_t err = cudaFuncSetAttribute(
       blend_bwd_kernel<kReplay>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -525,7 +561,8 @@ int launch(const float* entries, const int* counts, const float* scalars,
 // int32 [num_tiles] are inputs, from lara_blend_fwd. replay 1: the kernel
 // rebuilds them, and writes them there where the pointers are non-null.
 // cot f32 [num_tiles, 10, tile*tile]; grad f32 [num_tiles, budget, 13]
-// (every element written). tile must be 16.
+// (every element written). tile must be 16, chunk must divide budget, and
+// the block's shared memory (smem_bytes) must fit sm_90's 232,448 B.
 extern "C" int lara_blend_bwd(const float* entries, const int* counts,
                               const float* scalars, float* stash, int* ndone,
                               const float* cot, float* grad, int replay,
@@ -534,8 +571,9 @@ extern "C" int lara_blend_bwd(const float* entries, const int* counts,
                               float alpha_min, float t_min, float near_cull,
                               float dist_near, float dist_far,
                               float filter2d_invsq, void* stream) {
-  if (tile * tile != kTilePixels) return static_cast<int>(cudaErrorInvalidValue);
-  if (replay && budget / chunk > kMaxReplayChunks)
+  if (tile * tile != kTilePixels || chunk <= 0 || budget % chunk != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (smem_bytes(budget, chunk, replay != 0) > 232448)
     return static_cast<int>(cudaErrorInvalidValue);
   if (!replay && (stash == nullptr || ndone == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);

@@ -43,13 +43,18 @@ struct Params {
 // tiles of that value: about ten block-wide sums of per-thread registers,
 // against a tile's tens of microseconds. Every thread of the block calls it
 // (it synchronises). More than kThreads * kOrderPerThread tiles keep the
-// launch order.
+// launch order. `scratch` is kOrderScratch ints of shared memory that no
+// thread touches again before the block's next barrier (the backward lends
+// its dynamic shared memory: a static array would add to every block's
+// shared memory, and the replay backward at budget 512 fits 4 blocks per
+// SM with no byte to spare).
 constexpr int kOrderPerThread = 16;
+constexpr int kOrderScratch = kThreads / 32 + 1;
 
 __device__ __forceinline__ int tile_of_block(const int* __restrict__ counts, int num_tiles,
-                                             int budget) {
-  __shared__ int warp_sums[kThreads / 32];
-  __shared__ int picked;
+                                             int budget, int* scratch) {
+  int* warp_sums = scratch;  // [kThreads / 32]
+  int& picked = scratch[kThreads / 32];
   if (num_tiles > kThreads * kOrderPerThread) return blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int per = (num_tiles + kThreads - 1) / kThreads;

@@ -107,7 +107,8 @@ __global__ void __launch_bounds__(kThreads) blend_fwd_kernel(
     const float* __restrict__ scalars, float* __restrict__ out, float* __restrict__ stash,
     int* __restrict__ ndone, Params p) {
   extern __shared__ float4 rec[];  // [chunk][kRecords]
-  const int t = tile_of_block(counts, gridDim.x, p.budget);
+  __shared__ int order[kOrderScratch];
+  const int t = tile_of_block(counts, gridDim.x, p.budget, order);
   const int tid = threadIdx.x;
   const int n = min(counts[t], p.budget);
   const View v = make_view(scalars, p);

@@ -11,6 +11,7 @@ on a cached build, so `build_log` always holds every kernel's lines.
 A kernel that cannot be built raises: nothing falls back.
 
     libs = build_library()        # {"blend_fwd": CDLL, ..., "tile_windows": CDLL}
+    build_other(csrc)             # the same from another checkout's sources
     kernel_resources(build_log)   # {"blend_fwd_kernel": {"registers": 64, ...}, ...}
     serialised_wgmma(build_log)   # kernels whose wgmma ptxas serialised
 """
@@ -72,12 +73,13 @@ def _nvcc() -> str:
     return str(path)
 
 
-def library_path(name: str) -> Path:
-    """Where kernel library `name` is built: keyed by a hash of its source,
-    the shared headers and its flags; its nvcc log has the suffix .log."""
+def library_path(name: str, csrc: Path = _CSRC) -> Path:
+    """Where kernel library `name` of the sources in `csrc` is built: keyed
+    by a hash of its source, the shared headers and its flags; its nvcc log
+    has the suffix .log."""
     src, flags = _KERNELS[name][:2]
-    headers = b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
-    key = hashlib.sha256((_CSRC / src).read_bytes() + headers
+    headers = b"".join(h.read_bytes() for h in sorted(csrc.glob("*.cuh")))
+    key = hashlib.sha256((csrc / src).read_bytes() + headers
                          + " ".join(flags).encode()).hexdigest()[:16]
     return _BUILD_DIR / f"{Path(src).stem}_{key}.so"
 
@@ -88,14 +90,28 @@ def build_library() -> dict:
     global build_log
     if _libs:
         return _libs
+    libs, build_log = _build(_CSRC)
+    _libs.update(libs)
+    return _libs
+
+
+def build_other(csrc: Path) -> dict:
+    """The libraries of another checkout's kernel sources (its
+    `lara_tpu_torch/csrc`, with the same C entry points), built as
+    `build_library` builds the port's and returned without replacing them:
+    for timing two versions of a kernel in one process."""
+    return _build(Path(csrc))[0]
+
+
+def _build(csrc: Path) -> tuple:
     paths, procs = {}, {}
     for name, (src, flags, _, _) in _KERNELS.items():
-        paths[name] = library_path(name)
+        paths[name] = library_path(name, csrc)
         if not (paths[name].exists() and paths[name].with_suffix(".log").exists()):
             _BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = paths[name].with_suffix(f".{os.getpid()}.tmp")
             procs[name] = (tmp, subprocess.Popen(
-                [_nvcc(), *flags, "-o", str(tmp), str(_CSRC / src)],
+                [_nvcc(), *flags, "-o", str(tmp), str(csrc / src)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     outs = {name: proc.communicate()[0] for name, (_, proc) in procs.items()}
     for name, (tmp, proc) in procs.items():
@@ -104,15 +120,14 @@ def build_library() -> dict:
         tmp.with_suffix(".log").write_text(outs[name])
         os.replace(tmp.with_suffix(".log"), paths[name].with_suffix(".log"))
         os.replace(tmp, paths[name])
-    build_log = "".join(paths[name].with_suffix(".log").read_text() for name in _KERNELS)
+    log = "".join(paths[name].with_suffix(".log").read_text() for name in _KERNELS)
     libs = {}
     for name, (_, _, sym, argtypes) in _KERNELS.items():
         lib = ctypes.CDLL(str(paths[name]))
         fn = getattr(lib, sym)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
         libs[name] = lib
-    _libs.update(libs)
-    return _libs
+    return libs, log
 
 
 def kernel_name(mangled: str) -> str:
@@ -131,20 +146,23 @@ def kernel_name(mangled: str) -> str:
 
 
 def kernel_resources(log: str) -> dict:
-    """{kernel: {"registers", "spill_stores", "spill_loads"}} from ptxas's
-    `-v` lines in an nvcc log (bytes for the spills)."""
+    """{kernel: {"registers", "spill_stores", "spill_loads", "static_smem"}}
+    from ptxas's `-v` lines in an nvcc log (bytes for the spills and the
+    static shared memory, which a block holds beside its dynamic one)."""
     res, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             name = kernel_name(m.group(1))
-            res[name] = {"registers": 0, "spill_stores": 0, "spill_loads": 0}
+            res[name] = {"registers": 0, "spill_stores": 0, "spill_loads": 0, "static_smem": 0}
             continue
         if name is None:
             continue
         m = re.search(r"Used (\d+) registers", line)
         if m:
             res[name]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            res[name]["static_smem"] = int(m.group(1)) if m else 0
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
             res[name]["spill_stores"], res[name]["spill_loads"] = map(int, m.groups())

@@ -35,13 +35,16 @@ PACK_COLS = 13
 MAX_CHUNK = 512     # 5 staged float4 per entry: 40 KB of shared memory at 512
 # the backward's shared memory grows with the chunk (kernel_smem): 56 KB at 128
 MAX_BWD_CHUNK = 128
-# the replay backward keeps each chunk's carry-in T of its pixels in a
-# per-thread array of this many slots (blend_bwd.cu, kMaxReplayChunks)
-MAX_REPLAY_CHUNKS = 16
+# dynamic shared memory a block may ask for on sm_90; the replay backward,
+# which keeps every chunk's hit bits, is refused past it (blend_bwd.cu)
+MAX_SMEM = 232448
 LAUNCHES = {"blend_fwd": 0, "blend_fwd_stash": 0, "blend_bwd": 0,
             "blend_bwd_replay": 0}
+# the kernel behind each launch count, as ptxas names it in the build log
+KERNELS = {"blend_fwd_kernel": "blend_fwd", "blend_bwd_kernel<0>": "blend_bwd",
+           "blend_bwd_kernel<1>": "blend_bwd_replay"}
 # threads per block (one 16×16 tile, two pixels per thread) of each kernel
-THREADS = {"blend_fwd": 128, "blend_bwd": 128}
+THREADS = {"blend_fwd": 128, "blend_bwd": 128, "blend_bwd_replay": 128}
 RECORD = 20         # f32 per staged entry (blend_common.cuh: five float4)
 SUB = 32            # entries per sub-block of the backward: one word of hit bits
 PARTIALS = 19       # per-entry partial gradients summed over a tile's pixels
@@ -50,16 +53,22 @@ PARTIALS = 19       # per-entry partial gradients summed over a tile's pixels
 FWD_MIN_SMEM = 233472 // 6 - 1024 + 16
 
 
-def kernel_smem(chunk: int) -> dict:
+def kernel_smem(chunk: int, budget: int | None = None) -> dict:
     """Dynamic shared memory per block (bytes) of each blend kernel at
-    `pallas_chunk` = chunk, as its launch asks for it (`blend_fwd.cu`: the
-    staged records, at least FWD_MIN_SMEM; `blend_bwd.cu:smem_bytes`: the staged records, each
-    sub-block's hit bits and end transmittance for the tile's 256 pixels,
-    and the per-warp partials of the chunk)."""
+    `pallas_chunk` = chunk and `tile_budget` = budget (default: one chunk),
+    as its launch asks for it (`blend_fwd.cu`: the staged records, at least
+    FWD_MIN_SMEM; `blend_bwd.cu:smem_bytes`: the staged records, the hit
+    bits and end transmittance of each sub-block of one chunk (stash mode)
+    or of every chunk of the budget (replay mode) for the tile's 256
+    pixels, and the per-warp partials of the chunk)."""
     nsub = -(-chunk // SUB)
     warps = THREADS["blend_bwd"] // 32
-    return {"blend_fwd": max(4 * RECORD * chunk, FWD_MIN_SMEM),
-            "blend_bwd": 4 * (RECORD * chunk + 2 * nsub * 256 + warps * chunk * PARTIALS)}
+
+    def bwd(kept):
+        return 4 * (RECORD * chunk + 2 * kept * nsub * 256 + warps * chunk * PARTIALS)
+
+    return {"blend_fwd": max(4 * RECORD * chunk, FWD_MIN_SMEM), "blend_bwd": bwd(1),
+            "blend_bwd_replay": bwd((budget or chunk) // chunk)}
 
 
 def reset_launches() -> None:
@@ -134,9 +143,12 @@ def _launch_bwd(entries, counts, scalars, carries, ndone, cot,
     if cfg.pallas_chunk > MAX_BWD_CHUNK or p != 256:
         raise ValueError(f"the blend backward takes 16×16 tiles and "
                          f"pallas_chunk ≤ {MAX_BWD_CHUNK}")
-    if replay and cfg.tile_budget // cfg.pallas_chunk > MAX_REPLAY_CHUNKS:
-        raise ValueError(f"the replay backward takes at most {MAX_REPLAY_CHUNKS} "
-                         f"chunks per tile (tile_budget / pallas_chunk)")
+    if replay:
+        smem = kernel_smem(cfg.pallas_chunk, cfg.tile_budget)["blend_bwd_replay"]
+        if smem > MAX_SMEM:
+            raise ValueError(f"the replay backward keeps the hit bits of every chunk in shared "
+                             f"memory: {smem} B at tile_budget {cfg.tile_budget} and "
+                             f"pallas_chunk {cfg.pallas_chunk}, more than {MAX_SMEM}")
     dev = entries.device
     entries, counts, scalars, cot = _cuda_args(
         dev, entries, counts, scalars, cot.to(torch.float32))

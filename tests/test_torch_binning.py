@@ -79,6 +79,26 @@ def test_tile_windows_match_pallas(n_tiles, k):
     assert (got[-4:] == INT32_MAX).all() and (got[-8:-4] == INT32_MAX).any()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [13, 128, 512])
+def test_tile_windows_kernel_matches_reference_on_cuda(k):
+    """The window kernel on the card against its plain version, bit for
+    bit: one word per lane at K 13, 16-byte stores at K 128 and 512, with
+    windows partly and wholly past the keys and a ragged count of tiles;
+    skipped without a GPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    rng = np.random.default_rng(k)
+    m = 20000
+    sk = np.sort(rng.integers(0, 2 ** 30, m)).astype(np.int32)
+    starts = np.sort(rng.integers(0, m + 1, 1021)).astype(np.int32)
+    starts[-8:-4] = m - rng.integers(1, k, 4)
+    starts[-4:] = m
+    keys, st = torch.from_numpy(sk).cuda(), torch.from_numpy(starts).cuda()
+    got = tile_windows(keys, st, k)
+    assert torch.equal(got.cpu(), tile_windows(t(sk), t(starts), k))
+
+
 CASES = [(400, {}), (700, {"tile_budget": 8}), (900, {"visible_budget": 640})]
 
 

@@ -306,18 +306,48 @@ def test_reference_backward_matches_pallas_replay_edge_cases(pallas_interpret, c
     assert np.all(got[~rows] == 0.0)
 
 
-def test_replay_knob_reaches_the_wrapper():
-    """RasterizeConfig.stash_carries picks the backward kernel; an unported
-    chunk count for the replay is refused before any launch."""
+def test_replay_backward_matches_pallas_past_16_chunks(pallas_interpret):
+    """The replay backward at 32 chunks per tile (budget 128, chunk 4): the
+    JAX kernel keeps a [max_chunks, 4, P] scratch for any chunk count, and
+    the port's has no chunk-count limit either."""
+    cfg = jax_cfg(tile_budget=128, pallas_chunk=4, dup=3, pallas_stash_carries=False)
+    entries, counts, scalars = make_windows(scene_np(5, 800), cfg)
+    assert counts.max() > 16 * cfg.pallas_chunk
+    got, want = grads_both(pallas_interpret, entries, counts, scalars, cfg,
+                           cotangent(cfg.num_tiles, 132))
+    assert np.abs(want).max() > 1.0
+    np.testing.assert_allclose(got, want, atol=5e-4, rtol=1e-3)
+
+
+class _Launched(Exception):
+    """Raised in place of the kernel build: the wrapper got past its checks."""
+
+
+def test_replay_knob_reaches_the_wrapper(monkeypatch):
+    """RasterizeConfig.stash_carries picks the backward kernel; the replay
+    is refused before any launch only where its shared memory (the hit bits
+    of every chunk) exceeds what a block may ask for, not by its count of
+    chunks."""
     cfg = jax_cfg(tile_budget=64, pallas_chunk=32, pallas_stash_carries=False)
     assert torch_cfg(cfg).stash_carries is False
     assert torch_cfg(jax_cfg()).stash_carries is True
-    big = RasterizeConfig(height=32, width=32, tile_budget=1024, pallas_chunk=32)
-    entries = torch.zeros(big.num_tiles, 1024, 13)
-    counts = torch.zeros(big.num_tiles, dtype=torch.int32)
+
+    def build_library():
+        raise _Launched
+
+    monkeypatch.setattr(_build, "build_library", build_library)
+
+    def replay(budget, chunk):
+        big = RasterizeConfig(height=32, width=32, tile_budget=budget, pallas_chunk=chunk)
+        cuda_blend.blend_bwd_replay(torch.zeros(big.num_tiles, budget, 13),
+                                    torch.zeros(big.num_tiles, dtype=torch.int32),
+                                    torch.ones(2), torch.zeros(big.num_tiles, 10, 256), big)
+
+    assert cuda_blend.kernel_smem(64, 4096)["blend_bwd_replay"] > cuda_blend.MAX_SMEM
     with pytest.raises(ValueError, match="replay"):
-        cuda_blend.blend_bwd_replay(entries, counts, torch.ones(2),
-                                    torch.zeros(big.num_tiles, 10, 256), big)
+        replay(4096, 64)
+    with pytest.raises(_Launched):     # 32 chunks: refused before, now launched
+        replay(1024, 32)
 
 
 @pytest.mark.cuda
@@ -336,6 +366,29 @@ def test_replay_backward_matches_stash_on_cuda():
     grad = cuda_blend.blend_bwd(e, c, sc, carries, ndone, cot, tcfg)
     grad_r, carries_r, ndone_r = cuda_blend.blend_bwd_replay(e, c, sc, cot, tcfg,
                                                              return_carries=True)
+    assert torch.equal(ndone_r, ndone) and torch.equal(grad_r, grad)
+    used = (torch.arange(carries.shape[1], device="cuda")[None, :] <= ndone[:, None])
+    assert torch.equal(carries_r[used], carries[used])
+
+
+@pytest.mark.cuda
+def test_replay_backward_matches_stash_past_16_chunks_on_cuda():
+    """The replay backward at 32 chunks per tile (budget 128, chunk 4)
+    against the stash path on the card: processed-chunk counts, carries and
+    gradients bit for bit; skipped without a GPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    cfg = jax_cfg(tile_budget=128, pallas_chunk=4, dup=3)
+    entries, counts, scalars = make_windows(scene_np(5, 800), cfg)
+    assert counts.max() > 16 * cfg.pallas_chunk
+    tcfg = torch_cfg(cfg)
+    e, c, sc = (torch.from_numpy(a).cuda() for a in (entries, counts, scalars))
+    cot = torch.from_numpy(cotangent(entries.shape[0], 3)).cuda()
+    _, carries, ndone = cuda_blend.blend_fwd(e, c, sc, tcfg, stash=True)
+    grad = cuda_blend.blend_bwd(e, c, sc, carries, ndone, cot, tcfg)
+    grad_r, carries_r, ndone_r = cuda_blend.blend_bwd_replay(e, c, sc, cot, tcfg,
+                                                             return_carries=True)
+    assert int(ndone.max()) > 16
     assert torch.equal(ndone_r, ndone) and torch.equal(grad_r, grad)
     used = (torch.arange(carries.shape[1], device="cuda")[None, :] <= ndone[:, None])
     assert torch.equal(carries_r[used], carries[used])

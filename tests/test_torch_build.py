@@ -34,7 +34,10 @@ def test_serialised_wgmma_flags_ptxas_codes():
 
 def test_kernel_resources_reads_registers_and_spills():
     assert _build.kernel_resources(CLEAN_LOG) == {
-        "flash_fwd_kernel<1>": {"registers": 168, "spill_stores": 8, "spill_loads": 12}}
+        "flash_fwd_kernel<1>": {"registers": 168, "spill_stores": 8, "spill_loads": 12,
+                                "static_smem": 0}}
+    fwd = CLEAN_LOG.replace("used 1 barriers,", "used 1 barriers, 32 bytes smem,")
+    assert _build.kernel_resources(fwd)["flash_fwd_kernel<1>"]["static_smem"] == 32
 
 
 def test_cached_build_returns_the_log_beside_the_library(monkeypatch, tmp_path):
@@ -66,6 +69,41 @@ def test_cached_build_returns_the_log_beside_the_library(monkeypatch, tmp_path):
     assert len(_build.kernel_resources(_build.build_log)) == len(_build._KERNELS)
 
 
+def test_build_other_leaves_the_port_libraries(monkeypatch, tmp_path):
+    """Another checkout's sources build into their own libraries (their own
+    hash keys), returned without becoming the port's or its build log."""
+    import shutil
+
+    class FakeLib:
+        def __init__(self, path):
+            self._name = path
+
+        def __getattr__(self, sym):
+            fn = lambda *args: 0  # noqa: E731
+            setattr(self, sym, fn)
+            return fn
+
+    other = tmp_path / "csrc"
+    shutil.copytree(_build._CSRC, other)
+    (other / "blend_bwd.cu").write_text("// another version\n")
+    build = tmp_path / "build"
+    build.mkdir()
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "build_log", "")
+    monkeypatch.setattr(_build, "_BUILD_DIR", build)
+    monkeypatch.setattr(_build.ctypes, "CDLL", FakeLib)
+    for name in _build._KERNELS:
+        so = _build.library_path(name, other)
+        so.write_bytes(b"")
+        so.with_suffix(".log").write_text(CLEAN_LOG)
+    libs = _build.build_other(other)
+    assert set(libs) == set(_build._KERNELS)
+    assert libs["blend_bwd"]._name == str(_build.library_path("blend_bwd", other))
+    assert _build.library_path("blend_bwd", other) != _build.library_path("blend_bwd")
+    assert _build.library_path("blend_fwd", other) == _build.library_path("blend_fwd")
+    assert _build._libs == {} and _build.build_log == ""
+
+
 def test_library_without_log_is_rebuilt(monkeypatch, tmp_path):
     """A library whose log is missing counts as not built: without nvcc the
     build raises rather than load it with no log."""
@@ -87,6 +125,31 @@ def test_blend_smem_fits_every_accepted_chunk():
         assert 0 < cuda_blend.kernel_smem(chunk)["blend_bwd"] <= 232448, chunk
     for chunk in range(1, cuda_blend.MAX_CHUNK + 1):
         assert 0 < cuda_blend.kernel_smem(chunk)["blend_fwd"] <= 49152, chunk
+
+
+def test_replay_smem_grows_with_the_budget():
+    """`kernel_smem` states the replay backward's shared memory as
+    `blend_bwd.cu:smem_bytes` computes it: the staged records (80 B per
+    entry), the hit bits and end values of every sub-block of 32 entries of
+    every chunk of the budget for 256 pixels (4 B each), and the per-warp
+    partials [4][chunk][19]; the stash mode keeps one chunk's bits. Every
+    budget the wrapper accepts for the replay fits a block's 232,448 B."""
+    def source_formula(budget, chunk, replay):
+        kept = budget // chunk if replay else 1
+        return 80 * chunk + 4 * (2 * kept * -(-chunk // 32) * 256 + 4 * chunk * 19)
+
+    assert cuda_blend.kernel_smem(64, 128)["blend_bwd"] == 28672
+    assert cuda_blend.kernel_smem(64, 128)["blend_bwd_replay"] == 32768
+    assert cuda_blend.kernel_smem(64, 512)["blend_bwd_replay"] == 57344
+    for chunk in range(1, cuda_blend.MAX_BWD_CHUNK + 1):
+        for budget in range(chunk, 64 * chunk + 1, chunk):
+            smem = cuda_blend.kernel_smem(chunk, budget)
+            assert smem["blend_bwd_replay"] == source_formula(budget, chunk, True)
+            assert smem["blend_bwd"] == source_formula(budget, chunk, False)
+            accepted = smem["blend_bwd_replay"] <= cuda_blend.MAX_SMEM
+            if budget // chunk <= 16:      # every count of chunks the replay took before
+                assert accepted, (budget, chunk)
+    assert cuda_blend.MAX_SMEM == 232448
 
 
 def test_backward_refuses_a_chunk_past_its_limit():

@@ -73,7 +73,19 @@ each prints its seconds:
      (no stash, the replay backward, the flash kernels), and one fine
      micro-step with `remat_policy="dots"` too; seconds and peak memory of
      each beside the default's;
-  10. a JSON line describing the kernels (with each one's bound at the
+  10. the trainer on `configs/synthetic256.yaml` (the flagship network at
+     B=3, 4 + 4 views of synthetic scenes at 256²): a store of 32 scenes
+     (12 views each) is written to a temporary directory, then
+     `python -m lara_tpu_torch.train`'s `main` runs in this process for 2
+     epochs of 9 micro-steps (use_rand_views, the fine stage from
+     optimizer step 3, validation, checkpoints and panels each epoch) and
+     again to a third epoch, resumed from the second's checkpoint. Every
+     train micro-step must launch the stash forward and the backward once
+     per render, the plain blend must never run, the scalars must be
+     finite; prints the median seconds per coarse and per fine micro-step,
+     the loader's scenes per second alone and the share of the run spent
+     waiting on it, and peak device memory;
+  11. a JSON line describing the kernels (with each one's bound at the
      path's shapes), the `nvidia-smi` line, and as the last line
      `{"ok": true, "device": {...}}`.
 
@@ -1152,6 +1164,180 @@ def train_flagship_phase(dev, knobs: bool) -> dict:
     return res
 
 
+TRAINER_OVERRIDES = [
+    "train_dataset.n_scenes=32", "test_dataset.n_scenes=32", "train.start_fine=2",
+    "train.use_rand_views=True", "train.check_val_every_n_epoch=1",
+    "train.ckpt_every_n_epoch=1", "train.vis_every_n_steps=5", "train.limit_val_batches=1.0"]
+
+
+@contextlib.contextmanager
+def counted_steps(log: list):
+    """Wrap the trainer's train and eval steps: each call appends its kind,
+    its kernel launches, its seconds (synchronised) and its loss to `log`.
+    log[0] collects the calls of the plain blend and the seconds spent in
+    checkpoint saves and panel writes."""
+    from lara_tpu_torch.train import checkpoint, loop
+
+    make_train, make_eval, plain = loop.make_train_step, loop.make_eval_step, \
+        cuda_blend.blend_tiles_reference
+    save, add_image = checkpoint.save_checkpoint, loop.RunLogger.add_image
+    totals = log[0]
+
+    def counting(kind, fn):
+        def run(*args):
+            before = launches()
+            t0 = time.perf_counter()
+            res = fn(*args)
+            stats = res if kind == "train" else res[1]
+            loss = stats["loss"].item()
+            log.append({"kind": kind, "loss": loss, "seconds": time.perf_counter() - t0,
+                        "launches": {k: v - before[k] for k, v in launches().items()}})
+            return res
+        return run
+
+    def timed(key, fn):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            res = fn(*args, **kw)
+            totals[key] += time.perf_counter() - t0
+            return res
+        return run
+
+    def plain_blend(*args, **kw):
+        totals["plain_blend"] += 1
+        return plain(*args, **kw)
+
+    loop.make_train_step = lambda *a, **kw: counting("train", make_train(*a, **kw))
+    loop.make_eval_step = lambda *a, **kw: counting("eval", make_eval(*a, **kw))
+    cuda_blend.blend_tiles_reference = plain_blend
+    checkpoint.save_checkpoint = timed("checkpoint_s", save)
+    loop.RunLogger.add_image = timed("panel_write_s", add_image)
+    try:
+        yield
+    finally:
+        loop.make_train_step, loop.make_eval_step = make_train, make_eval
+        cuda_blend.blend_tiles_reference = plain
+        checkpoint.save_checkpoint, loop.RunLogger.add_image = save, add_image
+
+
+def trainer_phase(dev) -> dict:
+    """(d) `python -m lara_tpu_torch.train configs/synthetic256.yaml` through
+    its `main`, in this process, on a 32-scene synthetic store at 256²: 28
+    train scenes, 9 micro-steps of B=3 per epoch, 2 epochs, then a resume
+    to a third. Raises on any failure."""
+    import os
+    import tempfile
+
+    from lara_tpu_torch.data import DataLoader, get_dataset, write_synthetic_store
+    from lara_tpu_torch.train import checkpoint as ckpt
+    from lara_tpu_torch.train.__main__ import main as train_main
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="lara_trainer_") as tmp:
+        t0 = time.perf_counter()
+        store = write_synthetic_store(os.path.join(tmp, "store"), n_scenes=32, n_views=12,
+                                      img_size=(256, 256))
+        store_s = time.perf_counter() - t0
+        logdir = os.path.join(tmp, "logs")
+        args = ["configs/synthetic256.yaml", f"train_dataset.data_root={store}",
+                f"test_dataset.data_root={store}", f"logger.dir={logdir}", *TRAINER_OVERRIDES]
+        print(f"[trainer] store of 32 scenes x 12 views at 256² written in {store_s:.2f} s")
+
+        runs = []
+        for n_epoch in (2, 3):
+            log = [{"plain_blend": 0, "checkpoint_s": 0.0, "panel_write_s": 0.0}]
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_launches()
+            t0 = time.perf_counter()
+            with counted_steps(log):
+                tr = train_main(args + [f"train.n_epoch={n_epoch}"])
+            wall = time.perf_counter() - t0
+            runs.append((tr, log, wall, launches(), torch.cuda.max_memory_allocated(dev)))
+
+        (tr, log, wall, counts, peak), (tr2, log2, wall2, counts2, peak2) = runs
+        cfg = tr.cfg
+        per_pass = cfg.train.batch_size * 2 * cfg.n_views
+        for tag, (t_, lg) in (("run 1", (tr, log)), ("resume", (tr2, log2))):
+            if lg[0]["plain_blend"]:
+                raise AssertionError(f"trainer {tag}: the plain blend ran {lg[0]} on the card")
+            steps = [e for e in lg[1:] if e["kind"] == "train"]
+            if len(steps) != len(t_.micro_log):
+                raise AssertionError(f"trainer {tag}: {len(steps)} counted steps, "
+                                     f"{len(t_.micro_log)} micro-steps")
+            for m, e in zip(t_.micro_log, steps):
+                want = want_launches(cfg, per_pass * (2 if m["with_fine"] else 1))
+                if e["launches"] != want or not np.isfinite(e["loss"]):
+                    raise AssertionError(f"trainer {tag} micro-step {m['micro']}: launches "
+                                         f"{e['launches']}, expected {want}; loss {e['loss']}")
+            for e in lg[1:]:
+                if e["kind"] == "eval" and not (e["launches"]["blend_fwd"] > 0
+                                                and e["launches"]["blend_fwd_stash"] == 0
+                                                and np.isfinite(e["loss"])):
+                    raise AssertionError(f"trainer {tag}: eval step {e}")
+        micro = tr.micro_log
+        if len(micro) != 18 or tr.state.step != 18:
+            raise AssertionError(f"trainer: {len(micro)} micro-steps, step {tr.state.step}")
+        kinds = {(m["with_fine"], m["n_sel"]) for m in micro}
+        if {f for f, _ in kinds} != {False, True} or {n for _, n in kinds} != {2, 3, None}:
+            raise AssertionError(f"trainer: (fine, views) taken {sorted(kinds, key=str)}")
+        if tr.val_epochs != [0, 1] or tr.ckpt_epochs != [0, 1]:
+            raise AssertionError(f"trainer: validation {tr.val_epochs}, checkpoints "
+                                 f"{tr.ckpt_epochs}")
+        with open(os.path.join(logdir, "scalars.jsonl")) as f:
+            scalars = [json.loads(line) for line in f]
+        val_epochs = sorted({d["step"] for d in scalars if d["tag"] == "val/psnr_fine"})
+        if not all(np.isfinite(d["value"]) for d in scalars) or val_epochs != [0, 1, 2] \
+                or not any(d["tag"] == "train/loss" for d in scalars):
+            raise AssertionError(f"trainer: scalars {scalars}")
+        ckpts = sorted(os.listdir(os.path.join(logdir, "ckpts")))
+        if ckpts != [os.path.basename(ckpt.checkpoint_path("", s)) for s in (9, 18, 27)]:
+            raise AssertionError(f"trainer: checkpoints {ckpts}")
+        panels = os.listdir(os.path.join(logdir, "panels"))
+        if not any(p.startswith("train_pred_rgb_fine") for p in panels) or \
+                not any(p.startswith("val_pred_rgb_fine") for p in panels):
+            raise AssertionError(f"trainer: panels {sorted(panels)}")
+        if [m["epoch"] for m in tr2.micro_log] != [2] * 9 or tr2.micro_log[0]["micro"] != 18 \
+                or tr2.state.step != 27 or tr2.val_epochs != [2]:
+            raise AssertionError(f"trainer resume: {[(m['epoch'], m['micro']) for m in tr2.micro_log]}"
+                                 f", step {tr2.state.step}, validation {tr2.val_epochs}")
+
+        # the loader alone: one epoch of the run's train loader, no device work
+        ds_cfg = cfg.train_dataset
+        loader = DataLoader(get_dataset(ds_cfg.dataset_name)(ds_cfg), ds_cfg.batch_size,
+                            shuffle=True, num_workers=ds_cfg.num_workers, seed=1)
+        t0 = time.perf_counter()
+        n_scenes = sum(len(b["meta"]) for b in loader)
+        loader_sps = n_scenes / (time.perf_counter() - t0)
+
+    med = {f: statistics.median(m["seconds"] for m in micro if m["with_fine"] == f)
+           for f in (False, True)}
+    train_launch = {k: v for k, v in counts.items() if v}
+    for tag, t_, lg, w in (("run 1", tr, log, wall), ("resume", tr2, log2, wall2)):
+        parts = {"train steps": sum(e["seconds"] for e in lg[1:] if e["kind"] == "train"),
+                 "eval steps (validation, panels)": sum(e["seconds"] for e in lg[1:]
+                                                       if e["kind"] == "eval"),
+                 "panel writes": lg[0]["panel_write_s"], "checkpoints": lg[0]["checkpoint_s"],
+                 "loader wait": t_.loader_wait_s}
+        parts["rest of the fit"] = t_.fit_s - sum(parts.values())
+        parts["set-up (config, net, datasets, state, restore)"] = w - t_.fit_s
+        print(f"[trainer] {tag} wall {w:.2f} s: "
+              + "; ".join(f"{k} {v:.3f}" for k, v in parts.items()))
+    print(f"[trainer] run 1: {len(micro)} micro-steps in {wall:.2f} s (fit {tr.fit_s:.2f} s); "
+          f"median s per micro-step coarse {med[False]:.4f} ({sum(not m['with_fine'] for m in micro)}) "
+          f"fine {med[True]:.4f} ({sum(m['with_fine'] for m in micro)}); loader wait "
+          f"{tr.loader_wait_s:.3f} s = {tr.loader_wait_s / tr.fit_s:.4f} of the fit; "
+          f"peak device memory {peak / 1e9:.2f} GB; launches {train_launch}")
+    print(f"[trainer] resume: 9 micro-steps in {wall2:.2f} s (fit {tr2.fit_s:.2f} s), "
+          f"step 18 -> {tr2.state.step}; loader wait {tr2.loader_wait_s / tr2.fit_s:.4f} of "
+          f"the fit; peak {peak2 / 1e9:.2f} GB")
+    print(f"[trainer] loader alone: {loader_sps:.2f} scenes/s ({ds_cfg.num_workers} worker "
+          f"threads, B={ds_cfg.batch_size}, 256²)")
+    print(f"[trainer] phase {time.perf_counter() - t_phase:.2f} s")
+    return {"launches": counts, "resume_launches": counts2, "micro_s": med,
+            "loader_scenes_per_s": loader_sps, "peak_gb": peak / 1e9}
+
+
 def kernel_records(kernel, backward, flash_res, serving, binning, train, train_knobs) -> list:
     """The kernels line: each kernel's launches on its path, its largest
     error against the plain version, its time beside the plain version's,
@@ -1236,6 +1422,13 @@ def main() -> int:
           f"{' '.join(f'{x:.3f}' for x in train_knobs['micro_s'])} peak "
           f"{train_knobs['peak_gb']:.2f} GB; + dots {train_knobs['dots_s']:.3f} s peak "
           f"{train_knobs['dots_peak_gb']:.2f} GB")
+
+    torch.cuda.empty_cache()
+    trainer = phase("trainer (configs/synthetic256.yaml)", trainer_phase, dev)
+    print("[trainer] launches on the trainer path: " + json.dumps(
+        {"run": {k: trainer["launches"][k] for k in ("blend_fwd_stash", "blend_bwd", "blend_fwd")},
+         "resume": {k: trainer["resume_launches"][k]
+                    for k in ("blend_fwd_stash", "blend_bwd", "blend_fwd")}}))
 
     records = kernel_records(kernel, backward, flash_res, serving, binning, train, train_knobs)
     for r in records:

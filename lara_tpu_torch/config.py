@@ -4,8 +4,9 @@ packages.
 
 The reference merges `configs/base.yaml ← [infer.yaml] ← CLI dotlist`
 (train_lightning.py:98-101, evaluation.py:180-184) with `${key}`
-interpolation (configs/base.yaml:35,47). `yaml` is imported inside the
-functions that parse text: the package itself must import without PyYAML.
+interpolation (configs/base.yaml:35,47). The YAML is read by this module's
+own reader (`parse_yaml`) of the subset that `configs/*.yaml` use, with
+PyYAML's scalar rules, so the package needs no PyYAML.
 
 Usage:
     cfg = load_config("configs/base.yaml", overrides=["train.lr=1e-4"])
@@ -209,9 +210,184 @@ def _resolve_interp(node: Any, root: Dict) -> Any:
     return node
 
 
+class YamlSubsetError(ValueError):
+    """Text outside the YAML subset that `parse_yaml` reads."""
+
+
+# PyYAML's implicit resolvers (YAML 1.1, yaml/resolver.py) for the scalars
+# of the subset; sexagesimal numbers and timestamps are outside it
+_NULL = re.compile(r"^(?:~|null|Null|NULL|)$")
+_BOOL = re.compile(r"^(?:yes|Yes|YES|no|No|NO|true|True|TRUE|false|False|FALSE"
+                   r"|on|On|ON|off|Off|OFF)$")
+_INT = re.compile(r"^(?:[-+]?0b[0-1_]+|[-+]?0[0-7_]+|[-+]?(?:0|[1-9][0-9_]*)"
+                  r"|[-+]?0x[0-9a-fA-F_]+)$")
+_FLOAT = re.compile(r"^(?:[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?"
+                    r"|\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?"
+                    r"|[-+]?\.(?:inf|Inf|INF)|\.(?:nan|NaN|NAN))$")
+_UNSUPPORTED = re.compile(r"^[-+]?[0-9][0-9_]*(?::[0-5]?[0-9])+(?:\.[0-9_]*)?$"
+                          r"|^[0-9]{4}-[0-9]{1,2}-[0-9]{1,2}")
+_ESCAPES = {"0": "\0", "a": "\a", "b": "\b", "t": "\t", "\t": "\t", "n": "\n",
+            "v": "\v", "f": "\f", "r": "\r", "e": "\x1b", " ": " ", '"': '"',
+            "/": "/", "\\": "\\"}
+
+
+def _plain_scalar(s: str, where: str) -> Any:
+    if _UNSUPPORTED.match(s):
+        raise YamlSubsetError(f"{where}: sexagesimal or timestamp scalar {s!r}")
+    if _NULL.match(s):
+        return None
+    if _BOOL.match(s):
+        return s.lower() in ("yes", "true", "on")
+    if _INT.match(s):
+        t = s.replace("_", "")
+        sign, t = (-1, t[1:]) if t[0] == "-" else (1, t.lstrip("+"))
+        if t.startswith("0b"):
+            return sign * int(t[2:], 2)
+        if t.startswith("0x"):
+            return sign * int(t[2:], 16)
+        return sign * int(t, 8 if len(t) > 1 and t[0] == "0" else 10)
+    if _FLOAT.match(s):
+        t = s.replace("_", "").lower()
+        if t.endswith(".inf"):
+            return -float("inf") if t[0] == "-" else float("inf")
+        return float("nan") if t == ".nan" else float(t)
+    if s[0] in "&*!|>%@`{}[]'\"," or s[:2] in ("- ", "? ") or s in ("-", "?") \
+            or ": " in s or s.endswith(":") or " #" in s:
+        raise YamlSubsetError(f"{where}: not a scalar of the subset: {s!r}")
+    return s
+
+
+def _quoted(text: str, i: int, where: str):
+    """The quoted scalar starting at text[i]; returns (value, end index)."""
+    q, out, i = text[i], [], i + 1
+    while i < len(text):
+        c = text[i]
+        if c == q:
+            if q == "'" and text[i + 1:i + 2] == "'":
+                out.append("'")
+                i += 2
+                continue
+            return "".join(out), i + 1
+        if q == '"' and c == "\\":
+            e = text[i + 1:i + 2]
+            if e == "x" and re.fullmatch(r"[0-9a-fA-F]{2}", text[i + 2:i + 4]):
+                out.append(chr(int(text[i + 2:i + 4], 16)))
+                i += 4
+                continue
+            if e not in _ESCAPES:
+                raise YamlSubsetError(f"{where}: escape \\{e} outside the subset")
+            out.append(_ESCAPES[e])
+            i += 2
+            continue
+        out.append(c)
+        i += 1
+    raise YamlSubsetError(f"{where}: unterminated {q}-quoted string")
+
+
+def _flow_list(text: str, i: int, where: str):
+    """The flow list `[a, b, ...]` starting at text[i]; returns (list, end)."""
+    items, i, expect_item = [], i + 1, True
+    while True:
+        while i < len(text) and text[i] == " ":
+            i += 1
+        if i >= len(text):
+            raise YamlSubsetError(f"{where}: unterminated flow list")
+        c = text[i]
+        if c == "]":
+            return items, i + 1
+        if c == ",":
+            if expect_item:
+                raise YamlSubsetError(f"{where}: empty flow list item")
+            expect_item, i = True, i + 1
+            continue
+        if not expect_item:
+            raise YamlSubsetError(f"{where}: expected ',' or ']' in a flow list")
+        if c == "[":
+            item, i = _flow_list(text, i, where)
+        elif c in "'\"":
+            item, i = _quoted(text, i, where)
+        else:
+            j = i
+            while j < len(text) and text[j] not in ",[]{}":
+                j += 1
+            raw = text[i:j].rstrip()
+            if not raw or ": " in raw or raw.endswith(":") or raw[0] in "&*!|>%@`#{":
+                raise YamlSubsetError(f"{where}: not a flow item of the subset: {raw!r}")
+            item, i = _plain_scalar(raw, where), j
+        items.append(item)
+        expect_item = False
+
+
+def _value(text: str, where: str) -> Any:
+    """One scalar or flow list, with an optional trailing comment."""
+    text = text.strip(" ")
+    if not text or text.startswith("#"):
+        return None
+    if text[0] in "'\"[":
+        val, end = (_flow_list if text[0] == "[" else _quoted)(text, 0, where)
+        rest = text[end:].strip(" ")
+        if rest and not rest.startswith("#"):
+            raise YamlSubsetError(f"{where}: text after a {text[0]}...: {rest!r}")
+        if rest and end < len(text) and text[end] != " ":
+            raise YamlSubsetError(f"{where}: a comment needs a space before '#'")
+        return val
+    return _plain_scalar(re.split(r"\s#", text, maxsplit=1)[0].rstrip(" "), where)
+
+
+def parse_yaml(text: str, source: str = "<string>") -> Any:
+    """Read the YAML subset of `configs/*.yaml`: nested block maps, scalars
+    with PyYAML's (YAML 1.1) resolution rules, quoted strings, flow lists
+    and comments. Returns what `yaml.safe_load` returns for such text; any
+    construct outside the subset raises YamlSubsetError naming
+    `source:line`, and nothing unrecognised is read as a string."""
+    lines = []
+    for n, raw in enumerate(text.splitlines(), 1):
+        where = f"{source}:{n}"
+        body = raw.rstrip(" \r")
+        stripped = body.lstrip(" ")
+        if not stripped or stripped.startswith("#"):
+            continue
+        if "\t" in body[:len(body) - len(stripped) + 1]:
+            raise YamlSubsetError(f"{where}: tab in the indentation")
+        if stripped in ("---", "...") or stripped.startswith(("--- ", "%")):
+            raise YamlSubsetError(f"{where}: document markers are outside the subset")
+        lines.append((len(body) - len(stripped), stripped, where))
+    if not lines:
+        return None
+    if len(lines) == 1 and lines[0][0] == 0 and not re.match(r"[^'\"\[].*?:( |$)",
+                                                             lines[0][1]):
+        return _value(lines[0][1], lines[0][2])
+
+    def block(k: int, indent: int):
+        out: Dict = {}
+        while k < len(lines) and lines[k][0] >= indent:
+            ind, body, where = lines[k]
+            if ind != indent:
+                raise YamlSubsetError(f"{where}: unexpected indentation")
+            m = re.match(r"([^'\"\[\]{}#&*!|>%@`,?-][^:#]*?|-[^ :#][^:#]*?):( |$)", body)
+            if not m:
+                raise YamlSubsetError(f"{where}: expected 'key: value'")
+            key = _plain_scalar(m.group(1).rstrip(" "), where)
+            rest = body[m.end():]
+            if rest.strip(" ") and not rest.strip(" ").startswith("#"):
+                out[key] = _value(rest, where)
+                k += 1
+            elif k + 1 < len(lines) and lines[k + 1][0] > indent:
+                out[key], k = block(k + 1, lines[k + 1][0])
+            else:
+                out[key] = None
+                k += 1
+        return out, k
+
+    out, k = block(0, lines[0][0])
+    if k != len(lines):
+        raise YamlSubsetError(f"{lines[k][2]}: unexpected indentation")
+    return out
+
+
 def _parse_value(s: str) -> Any:
-    import yaml
-    return yaml.safe_load(s)
+    """A dotlist value, read as `yaml.safe_load` reads a scalar or flow list."""
+    return _value(s, f"override value {s!r}")
 
 
 def _apply_dotlist(d: Dict, overrides: List[str]) -> Dict:
@@ -270,11 +446,10 @@ def parse_cli(argv: List[str]) -> Tuple[List[str], List[str]]:
 
 def load_config(*paths: str, overrides: Optional[List[str]] = None) -> Config:
     """Merge YAML files left-to-right, then apply `key.sub=value` overrides."""
-    import yaml
     merged: Dict = {}
     for path in paths:
         with open(path) as f:
-            merged = _deep_merge(merged, yaml.safe_load(f) or {})
+            merged = _deep_merge(merged, parse_yaml(f.read(), path) or {})
     if overrides:
         merged = _apply_dotlist(merged, list(overrides))
     return config_from_dict(merged)

@@ -1,0 +1,159 @@
+"""Threaded batch loader, the counterpart of `lara_tpu/data/loader.py`
+(in place of torch DataLoader's worker processes, train_lightning.py:35-45),
+and `device_prefetch`, the one-device counterpart of
+`lara_tpu/parallel/mesh.py:device_prefetch`.
+
+Worker threads decode whole batches (NumPy releases the GIL in its array
+work) into a bounded queue that the consumer drains in batch order; the
+epoch's shuffle is `np.random.default_rng((seed, epoch))`, as in the JAX
+package, so both packages visit the scenes in one order.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Iterator, Optional
+
+import numpy as np
+import torch
+
+
+def collate(samples: list) -> dict:
+    """Stack a list of per-scene dicts into batch arrays; `meta` entries are
+    collected into a list (the reference keeps them as Python values)."""
+    out = {}
+    for k in samples[0]:
+        if k == "meta":
+            out["meta"] = [s["meta"] for s in samples]
+        else:
+            out[k] = np.stack([np.asarray(s[k]) for s in samples])
+    return out
+
+
+class DataLoader:
+    """Batches of `batch_size` scenes (the last, partial batch is dropped),
+    collated by `num_workers` threads (0: in the consumer) at most
+    `prefetch` batches ahead."""
+
+    def __init__(self, dataset, batch_size: int, shuffle: bool = False,
+                 num_workers: int = 4, seed: int = 0, prefetch: int = 4):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.num_workers = max(0, num_workers)
+        self.seed = seed
+        self.prefetch = prefetch
+        self._epoch = 0
+
+    def __len__(self):
+        return len(self.dataset) // self.batch_size
+
+    def set_epoch(self, epoch: int):
+        self._epoch = epoch
+
+    def _batch_indices(self):
+        idx = np.arange(len(self.dataset))
+        if self.shuffle:
+            np.random.default_rng((self.seed, self._epoch)).shuffle(idx)
+        for b in range(len(self)):
+            yield idx[b * self.batch_size: (b + 1) * self.batch_size]
+
+    def __iter__(self) -> Iterator[dict]:
+        if self.num_workers == 0:
+            for ids in self._batch_indices():
+                yield collate([self.dataset[int(i)] for i in ids])
+            return
+
+        batches = list(self._batch_indices())
+        out_q: "queue.Queue[tuple[int, Optional[dict], Optional[BaseException]]]" = (
+            queue.Queue(maxsize=self.prefetch))
+        lock = threading.Lock()
+        cursor = [0]
+        stop_ev = threading.Event()
+
+        def put_with_backpressure(item) -> bool:
+            # a blocking put() would leave a worker stuck for ever when the
+            # consumer stops early (every epoch under limit_train_batches <
+            # 1): poll the stop event instead
+            while not stop_ev.is_set():
+                try:
+                    out_q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def worker():
+            while not stop_ev.is_set():
+                with lock:
+                    i = cursor[0]
+                    if i >= len(batches):
+                        return
+                    cursor[0] += 1
+                try:
+                    batch = collate([self.dataset[int(j)] for j in batches[i]])
+                except Exception as e:  # raised again in the consumer
+                    put_with_backpressure((i, None, e))
+                    return
+                if not put_with_backpressure((i, batch, None)):
+                    return
+
+        threads = [threading.Thread(target=worker, daemon=True)
+                   for _ in range(self.num_workers)]
+        for t in threads:
+            t.start()
+
+        pending: dict = {}
+        next_i = received = 0
+        try:
+            while received < len(batches):
+                i, batch, err = out_q.get()
+                if err is not None:
+                    raise err
+                received += 1
+                pending[i] = batch
+                while next_i in pending:
+                    yield pending.pop(next_i)
+                    next_i += 1
+        finally:
+            stop_ev.set()
+            with lock:
+                cursor[0] = len(batches)
+            # drain, so that a worker blocked in put() returns and its
+            # prefetched batch is released
+            try:
+                while True:
+                    out_q.get_nowait()
+            except queue.Empty:
+                pass
+
+
+def to_device(batch: dict, device) -> dict:
+    """Host batch (NumPy arrays, `meta`) → tensors on `device`. For a CUDA
+    device each array is copied into pinned memory and then to the device
+    without blocking the host; `meta` passes through."""
+    device = torch.device(device)
+    out = {}
+    for k, v in batch.items():
+        if k == "meta":
+            out[k] = v
+            continue
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        if device.type == "cuda":
+            t = t.pin_memory().to(device, non_blocking=True)
+        out[k] = t
+    return out
+
+
+def device_prefetch(iterator, device):
+    """Wrap a host batch iterator: each batch is put on `device` (`to_device`)
+    one batch ahead of the one yielded, so its copy overlaps the step that
+    runs on the batch before it."""
+    batch = next(iterator, None)
+    ahead = None if batch is None else to_device(batch, device)
+    while ahead is not None:
+        current = ahead
+        batch = next(iterator, None)
+        ahead = None if batch is None else to_device(batch, device)
+        yield current

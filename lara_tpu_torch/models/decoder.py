@@ -46,9 +46,12 @@ class Decoder(nn.Module):
                 scaling.reshape(b, -1, 2), rotation.reshape(b, -1, 4),
                 opacity.reshape(b, -1, 1))
 
-    def forward_fine(self, volume_feat, point_feats):
+    def forward_fine(self, volume_feat, point_feats, view_mask=None):
         """volume_feat [M, in_dim]; point_feats [M, V, cond_dim] → SH
-        residual [M, sh_dim] in f32 (lightning/network.py:280-284)."""
+        residual [M, sh_dim] in f32 (lightning/network.py:280-284).
+        view_mask [V] bool drops the deselected views (use_rand_views)."""
         q = self.norm(volume_feat)[:, None, :]                # [M, 1, C]
-        x = self.cross_att(q, point_feats)
+        kv_mask = (None if view_mask is None
+                   else view_mask[None, :].expand(point_feats.shape[:2]))
+        x = self.cross_att(q, point_feats, kv_mask)
         return self.mlp_fine(x)[:, 0, :].float()

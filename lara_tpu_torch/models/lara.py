@@ -22,6 +22,7 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from lara_tpu_torch.config import Config
 from lara_tpu_torch.models.attention import MultiHeadAttention
@@ -56,6 +57,19 @@ def make_cameras(c2ws: torch.Tensor, fovx, fovy, near, far) -> Camera:
         near=torch.broadcast_to(near, shape),
         far=torch.broadcast_to(far, shape),
     )
+
+
+def resize_linear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Resize [B, N, H, W, ...] maps to [B, N, h, w, ...] as
+    `jax.image.resize(..., method="linear")` does: half-pixel centres, a
+    triangle kernel widened by the scale when shrinking (antialiased), and
+    weights renormalised at the borders."""
+    b, n, hh, ww = x.shape[:4]
+    rest = x.shape[4:]
+    flat = x.reshape(b * n, hh, ww, -1).permute(0, 3, 1, 2)
+    out = F.interpolate(flat.float(), size=(h, w), mode="bilinear",
+                        align_corners=False, antialias=True)
+    return out.permute(0, 2, 3, 1).reshape(b, n, h, w, *rest).to(x.dtype)
 
 
 def _view(cams: Camera, b: int, v: int) -> Camera:
@@ -209,15 +223,35 @@ class LaRaNet(nn.Module):
                 return_buffer: bool = False, render_scale: float = 1.0,
                 n_views_sel: Optional[int] = None) -> Dict:
         """batch follows the reference schema (tensors on the model's
-        device); returns per-view maps stacked as [B, N, H, W, ...] plus
-        `_fine` variants when with_fine."""
-        if render_scale != 1.0 or n_views_sel is not None or "view_mask" in batch:
-            raise NotImplementedError(
-                "render_scale, n_views_sel and view_mask are not ported yet")
+        device); returns per-view maps stacked as [B, N, H', W', ...] plus
+        `_fine` variants when with_fine.
+
+        `render_scale` renders the output maps at round(H·s) snapped to the
+        tile grid (the reference's `render_img_scale`,
+        lightning/network.py:467,477): the rays are resized linearly, as
+        `jax.image.resize(..., "linear")` does; the encoder and the fine
+        stage's feature sampling stay at the native resolution.
+
+        use_rand_views (lightning/network.py:434-438), two ways:
+          - `n_views_sel`: only the first n_views_sel input views are
+            encoded (the dataset shuffles view order, so a prefix is a
+            uniform random subset);
+          - batch["view_mask"] (legacy): encode all n_views and leave the
+            dropped views' tokens out of every cross-attention.
+        """
         m = self.cfg.model
         tar_rgb = batch["tar_rgb"]
         B, N, H, W, _ = tar_rgb.shape
         n_in = self.cfg.n_views
+        if n_views_sel is not None:
+            if not 1 <= n_views_sel <= n_in:
+                raise ValueError(f"n_views_sel={n_views_sel} is outside 1..{n_in}")
+            n_in = n_views_sel
+        if not render_scale > 0:
+            raise ValueError(f"render_scale must be positive, got {render_scale}")
+        view_mask = batch.get("view_mask")
+        if view_mask is not None:
+            view_mask = view_mask.to(torch.bool).reshape(-1, n_in)[:1].expand(B, n_in)
 
         imgs = tar_rgb[:, :n_in].reshape(B * n_in, H, W, 3)
         rays_down = batch["tar_rays_down"][:, :n_in]
@@ -235,7 +269,7 @@ class LaRaNet(nn.Module):
             feat_vol = torch.cat([feat_vol, ve], dim=-1)
 
         with self._autocast():
-            volume = self.vol_decoder(feat_vol)              # [B, 2R, 2R, 2R, out]
+            volume = self.vol_decoder(feat_vol, view_mask)   # [B, 2R, 2R, 2R, out]
             volume_feat_up = volume.reshape(B, -1, m.vol_embedding_out_dim)
             offset, sh_c, scaling_c, rotation_c, opacity_c = self.decoder.forward_coarse(
                 volume_feat_up, self.opacity_shift, self.scaling_shift)
@@ -252,7 +286,14 @@ class LaRaNet(nn.Module):
                             batch["fovy"][:, None], batch["near_far"][:, None, 0],
                             batch["near_far"][:, None, 1])
         rays_full = batch["tar_rays"]
-        rcfg = self._render_cfg(H, W, train)
+        if render_scale != 1.0:
+            tile = self.cfg.render.tile
+            Hs = max(tile, int(round(H * render_scale / tile)) * tile)
+            Ws = max(tile, int(round(W * render_scale / tile)) * tile)
+            rays_full = resize_linear(rays_full, Hs, Ws)
+        else:
+            Hs, Ws = H, W
+        rcfg = self._render_cfg(Hs, Ws, train)
         bg = batch["bg_color"].float()
 
         # coarse renders; with the fine stage, keep each view's binning
@@ -268,9 +309,15 @@ class LaRaNet(nn.Module):
         buffers = {"coarse": (centers_c, sh_c, opacity_c, scaling_c, rotation_c)}
 
         if with_fine:
+            fine_src = outputs
+            if (Hs, Ws) != (H, W):
+                # the fine stage samples the coarse renders on the native
+                # image grid, beside the reference RGB
+                fine_src = {k: resize_linear(outputs[k], H, W)
+                            for k in ("image", "acc_map", "depth")}
             sh_fine, sel_mask = self._fine_stage(
-                batch, outputs, volume_feat_up, centers_c, sh_c, opacity_c,
-                n_in, (H, W))
+                batch, fine_src, volume_feat_up, centers_c, sh_c, opacity_c,
+                n_in, (H, W), view_mask)
             frames_f = [[render_view_rebind(
                 _view(cams, b, v), rays_full[b, v], binned[b][v], centers_c[b],
                 sh_fine[b], opacity_c[b], sel_mask[b], scaling_c[b],
@@ -285,12 +332,14 @@ class LaRaNet(nn.Module):
         return outputs
 
     def _fine_stage(self, batch, coarse_out, volume_feat_up, centers, sh_c,
-                    opacity_c, n_in: int, img_hw):
+                    opacity_c, n_in: int, img_hw, view_mask=None):
         """Static-budget fine refinement (lightning/network.py:502-525):
         select the top-`fine_budget` surfels by coarse opacity, sample
         per-view point features from the coarse renders, predict an SH
         residual and add it back onto the full surfel set. Returns
-        (sh_fine [B,P,SH,3], sel_mask [B,P] bool)."""
+        (sh_fine [B,P,SH,3], sel_mask [B,P] bool). view_mask [B, n_in]
+        leaves the deselected views out of the fine decoder's attention
+        (all scenes share scene 0's mask, as in the JAX package)."""
         m = self.cfg.model
         M = min(m.fine_budget, centers.shape[1])
         h, w = img_hw
@@ -325,7 +374,8 @@ class LaRaNet(nn.Module):
                 pf.append(torch.cat([samp[:, :-1], zdiff[:, None]], dim=-1))
             pf = torch.stack(pf, dim=1)                      # [M, V, 8]
             with self._autocast():
-                sh_res = self.decoder.forward_fine(vol_sel, pf)
+                sh_res = self.decoder.forward_fine(
+                    vol_sel, pf, None if view_mask is None else view_mask[0])
             sh_out.append(sh_c[b].index_add(
                 0, idx, sh_res.reshape(M, self.sh_dim // 3, 3).to(sh_c.dtype)))
             mask = torch.zeros(centers.shape[1], dtype=torch.bool, device=centers.device)

@@ -10,7 +10,7 @@ LayerNorm eps follows the JAX package (1e-6 throughout).
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -60,15 +60,21 @@ class ModLN(nn.Module):
         return self.norm(x) * (1 + scale) + shift
 
 
-def _group_cond(image_feats: torch.Tensor, n_group: int) -> torch.Tensor:
+def _group_cond(image_feats: torch.Tensor, n_group: int,
+                view_mask: Optional[torch.Tensor] = None):
     """Per-layer KV grouping (lightning/network.py:144-150): group each
     view's feature volume and flatten all views' tokens of a group into one
-    sequence. [B, V, D, H, W, C] → [B, G³, V·l, C]."""
+    sequence. [B, V, D, H, W, C] → ([B, G³, V·l, C], the [B, V] view mask
+    spread to [B, G³, V·l], or None)."""
     b, v, d, h, w, c = image_feats.shape
     per_view = group_volume(image_feats.reshape(b * v, d, h, w, c), d // n_group)
     g3, l = per_view.shape[1], per_view.shape[2]
     per_view = per_view.reshape(b, v, g3, l, c)
-    return per_view.transpose(1, 2).reshape(b, g3, v * l, c)
+    cond = per_view.transpose(1, 2).reshape(b, g3, v * l, c)
+    if view_mask is None:
+        return cond, None
+    mask = view_mask[:, None, :, None].expand(b, g3, v, l)
+    return cond, mask.reshape(b, g3, v * l)
 
 
 class GroupAttBlock(nn.Module):
@@ -88,16 +94,20 @@ class GroupAttBlock(nn.Module):
             nn.Linear(inner_dim, hidden), nn.GELU(), nn.Dropout(0.0),
             nn.Linear(hidden, inner_dim), nn.Dropout(0.0))
 
-    def forward(self, x, image_feats, block_size: int):
+    def forward(self, x, image_feats, block_size: int,
+                view_mask: Optional[torch.Tensor] = None):
         """x [B, D, H, W, C]; image_feats the raw per-view feature volume
-        [B, V, Df, Hf, Wf, C_cond], grouped here with this layer's blocks."""
+        [B, V, Df, Hf, Wf, C_cond], grouped here with this layer's blocks;
+        view_mask [B, V] bool leaves the False views' tokens out of the
+        attention."""
         b, d, _, _, c = x.shape
-        cond = _group_cond(image_feats, d // block_size)
+        cond, cond_mask = _group_cond(image_feats, d // block_size, view_mask)
         patches = group_volume(x, block_size)                 # [B, G, l, C]
         g = patches.shape[1]
         flat = patches.reshape(b * g, -1, c)
         cond_flat = cond.reshape(b * g, cond.shape[2], cond.shape[3])
-        flat = flat + self.cross_attn(self.norm1(flat), cond_flat)
+        mask_flat = None if cond_mask is None else cond_mask.reshape(b * g, -1)
+        flat = flat + self.cross_attn(self.norm1(flat), cond_flat, mask_flat)
         flat = flat + self.mlp(self.norm2(flat))
         flat = self.norm3(flat)
         vol = ungroup_volume(flat.reshape(b, g, -1, c), block_size, d)
@@ -122,13 +132,16 @@ class VolTransformer(nn.Module):
         self.norm = nn.LayerNorm(embed_dim, eps=1e-6)
         self.deconv = nn.ConvTranspose3d(embed_dim, out_dim, 2, stride=2)
 
-    def forward(self, image_feats: torch.Tensor) -> torch.Tensor:
-        """image_feats [B, V, D, H, W, C_img] → volume [B, 2D, 2H, 2W, out]."""
+    def forward(self, image_feats: torch.Tensor,
+                view_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """image_feats [B, V, D, H, W, C_img] → volume [B, 2D, 2H, 2W, out].
+        view_mask [B, V] bool excludes the deselected views' tokens from
+        every layer's attention (use_rand_views with static shapes)."""
         b = image_feats.shape[0]
         x = _channels_last(self.pos_embed).expand(b, -1, -1, -1, -1)
         for i, layer in enumerate(self.layers):
             x = maybe_remat(self.remat, layer, x, image_feats,
-                            self.block_sizes[i % len(self.block_sizes)],
+                            self.block_sizes[i % len(self.block_sizes)], view_mask,
                             policy=self.remat_policy)
         x = self.norm(x)
         return _channels_last(self.deconv(_channels_first(x)))

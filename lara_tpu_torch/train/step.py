@@ -10,7 +10,7 @@ parallelism is not ported yet.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -20,14 +20,17 @@ from lara_tpu_torch.train.state import TrainState
 
 
 def make_train_step(net: LaRaNet, state: TrainState, with_fine: bool,
-                    grad_accum: int = 1) -> Callable[[Dict], Dict]:
+                    grad_accum: int = 1, n_views_sel: Optional[int] = None
+                    ) -> Callable[[Dict], Dict]:
     """One micro-step per call: forward at the train raster budgets, losses,
     backward, then `state.apply_gradients()` (which updates the parameters
-    on every `grad_accum`-th call). Returns the detached stats with "loss"."""
+    on every `grad_accum`-th call). Returns the detached stats with "loss".
+    `n_views_sel` (use_rand_views) encodes only the first n_views_sel
+    input views."""
 
     def step(batch: Dict) -> Dict:
         net.train()
-        out = net(batch, with_fine=with_fine, train=True)
+        out = net(batch, with_fine=with_fine, train=True, n_views_sel=n_views_sel)
         loss, stats = compute_losses(batch, out, state.step // grad_accum)
         loss.backward()
         state.apply_gradients()
@@ -54,15 +57,16 @@ def make_eval_step(net: LaRaNet, with_fine: bool = True) -> Callable:
     return step
 
 
-def make_forward(net: LaRaNet, with_fine: bool = True,
-                 return_buffer: bool = False) -> Callable[[Dict], Dict]:
+def make_forward(net: LaRaNet, with_fine: bool = True, return_buffer: bool = False,
+                 render_scale: float = 1.0) -> Callable[[Dict], Dict]:
     """Inference forward over a batch of tensors on the model's device
-    (eval budgets, no autograd). Puts `net` in eval mode."""
+    (eval budgets, no autograd). Puts `net` in eval mode. `render_scale`
+    is the reference's `render_img_scale` (lightning/network.py:467)."""
     net.eval()
 
     @torch.inference_mode()
     def fwd(batch: Dict) -> Dict:
         return net(batch, with_fine=with_fine, train=False,
-                   return_buffer=return_buffer)
+                   return_buffer=return_buffer, render_scale=render_scale)
 
     return fwd

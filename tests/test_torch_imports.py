@@ -1,6 +1,7 @@
 """Import hygiene of the port: every module of `lara_tpu_torch`, and
 `chip_smoke.py`, imports in a fresh interpreter without pulling in JAX, flax, the JAX package, PyYAML,
-h5py or OpenCV (the GPU machine has none of the last three)."""
+h5py or OpenCV (the GPU machine has none of the last three); loading the
+configs does not pull them in either."""
 
 import json
 import subprocess
@@ -19,6 +20,8 @@ names = ["lara_tpu_torch"] + [m.name for m in pkgutil.walk_packages(
     lara_tpu_torch.__path__, "lara_tpu_torch.")]
 for name in names + ["chip_smoke"]:
     importlib.import_module(name)
+from lara_tpu_torch.config import load_config
+load_config("configs/base.yaml", "configs/synthetic256.yaml", overrides=["train.lr=1e-4"])
 print(json.dumps({"modules": names,
                   "loaded": sorted({m.split(".")[0] for m in sys.modules})}))
 """
@@ -39,7 +42,12 @@ def test_every_module_imports(probe):
                 "lara_tpu_torch.ops.msssim", "lara_tpu_torch.models.remat",
                 "lara_tpu_torch.tools.profile_train",
                 "lara_tpu_torch.ops.rasterizer.cuda_windows",
-                "lara_tpu_torch.tools.workload", "lara_tpu_torch.tools.profile_binning"}
+                "lara_tpu_torch.tools.workload", "lara_tpu_torch.tools.profile_binning",
+                "lara_tpu_torch.utils.camera", "lara_tpu_torch.data",
+                "lara_tpu_torch.data.decode", "lara_tpu_torch.data.synthetic",
+                "lara_tpu_torch.data.gobjverse", "lara_tpu_torch.data.loader",
+                "lara_tpu_torch.train.checkpoint", "lara_tpu_torch.train.loop",
+                "lara_tpu_torch.train.__main__", "lara_tpu_torch.eval.vis"}
     assert expected <= set(probe["modules"])
 
 

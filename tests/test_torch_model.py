@@ -1,6 +1,7 @@
 """The port's network and serving forward against the JAX package, in f32
 on both sides, on `tests/test_model.py:tiny_config` with the same weights
-(`params_from_jax`).
+(`params_from_jax`), and the view selection (`n_views_sel`, `view_mask`)
+and `render_scale` against the JAX forward at 4 input views.
 
 Tolerances: the ViT, ModLN and decoders at atol 1e-4 (f32 matmul order);
 the volume transformer at 5e-4 (two stacked layers, as tests/test_convert.py);
@@ -142,12 +143,105 @@ def test_serving_slice_matches_jax(nets, pallas_interpret):  # noqa: F811
 
 
 def test_unported_options_raise(nets):
-    _, _, _, tnet = nets
+    """render_scale and n_views_sel are ported (the tests below); what
+    stays outside the port, or outside the options' range, raises."""
+    cfg, _, _, tnet = nets
     batch = {k: torch.from_numpy(np.array(v)) for k, v in synthetic_batch(B=1).items()}
-    with pytest.raises(NotImplementedError):
-        tnet(batch, render_scale=0.5)
-    with pytest.raises(NotImplementedError):
-        tnet(batch, n_views_sel=1)
+    with pytest.raises(ValueError, match="render_scale"):
+        tnet(batch, render_scale=0.0)
+    for n in (0, cfg.n_views + 1):
+        with pytest.raises(ValueError, match="n_views_sel"):
+            tnet(batch, n_views_sel=n)
+
+
+def test_masked_modules_match_jax(nets):
+    """The key masks of the volume transformer (per view, spread over each
+    group's tokens) and of the fine decoder (per view) against the JAX
+    modules, with one of the two views masked."""
+    cfg, jnet, params, tnet = nets
+    m = cfg.model
+    r = m.vol_feat_reso
+    rng = np.random.default_rng(5)
+    feats = rng.normal(size=(2, 2, r, r, r, m.encoder_dim + m.view_embed_dim)).astype(np.float32)
+    vm = np.array([[True, False], [True, False]])
+    want = jnet.apply(params, jnp.asarray(feats), jnp.asarray(vm),
+                      method=lambda mod, x, v: mod.vol_decoder(x, v))
+    with torch.no_grad():
+        got = tnet.vol_decoder(_t(feats), torch.from_numpy(vm))
+        unmasked = tnet.vol_decoder(_t(feats))
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=5e-4)
+    assert not np.allclose(got.numpy(), unmasked.numpy(), atol=1e-3)
+
+    vol = rng.normal(size=(40, m.vol_embedding_out_dim)).astype(np.float32)
+    pf = rng.normal(size=(40, 2, 8)).astype(np.float32)
+    want = jnet.apply(params, jnp.asarray(vol), jnp.asarray(pf), jnp.asarray(vm[0]),
+                      method=lambda mod, v, p, k: mod.decoder_fine(v, p, k))
+    with torch.no_grad():
+        got = tnet.decoder.forward_fine(_t(vol), _t(pf), torch.from_numpy(vm[0]))
+        one_view = tnet.decoder.forward_fine(_t(vol), _t(pf[:, :1]))
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=1e-4)
+    np.testing.assert_allclose(got.numpy(), one_view.numpy(), atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def nets4():
+    """tiny_config(n_views=4) in f32 on both sides, weights from
+    PRNGKey(2), batch seed 4: tests/test_model.py:199,211's setting. The
+    JAX side renders with its default CPU backend (the XLA formulation)."""
+    cfg = tiny_config(n_views=4)
+    jnet = JaxLaRaNet(cfg, dtype=jnp.float32)
+    batch = synthetic_batch(B=1, n_views=4, H=64, W=64, seed=4)
+    params = jax.jit(lambda r: jnet.init(r, batch, with_fine=True, train=False))(
+        jax.random.PRNGKey(2))
+    tnet = LaRaNet(config_from_dict(dataclasses.asdict(cfg)), dtype=torch.float32,
+                   device="cpu")
+    tnet.load_state_dict(params_from_jax(params["params"]), strict=True)
+    return jnet, params, batch, tnet
+
+
+def _assert_views_match(got, want, shape):
+    for key, atol in (("image", 1e-3), ("image_fine", 1e-3), ("acc_map_fine", 1e-3),
+                      ("depth", 5e-3), ("depth_fine", 5e-3)):
+        assert tuple(got[key].shape[:4]) == shape == tuple(want[key].shape[:4]), key
+        np.testing.assert_allclose(got[key].detach().numpy(), _np(want[key]), atol=atol,
+                                   err_msg=key)
+
+
+@pytest.mark.parametrize("case", ["n_views_sel=2", "n_views_sel=3", "view_mask=3"])
+def test_view_selection_matches_jax(nets4, case):
+    """use_rand_views both ways, on the training forward (train=True, fine
+    on), against the JAX forward (atol as the serving slice's)."""
+    jnet, params, batch, tnet = nets4
+    name, n = case.split("=")
+    n = int(n)
+    tb = {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
+    if name == "view_mask":
+        vm = np.arange(4) < n
+        jb = dict(batch, view_mask=jnp.asarray(vm))
+        want = jax.jit(lambda p, b: jnet.apply(p, b, with_fine=True, train=True))(params, jb)
+        got = tnet(dict(tb, view_mask=torch.from_numpy(vm)), with_fine=True, train=True)
+        # the mask path equals the prefix path (tests/test_model.py:211)
+        sliced = tnet(tb, with_fine=True, train=True, n_views_sel=n)
+        for k in ("image", "image_fine", "depth"):
+            np.testing.assert_allclose(got[k].detach().numpy(), sliced[k].detach().numpy(),
+                                       atol=2e-5, err_msg=k)
+    else:
+        want = jax.jit(lambda p, b: jnet.apply(p, b, with_fine=True, train=True,
+                                               n_views_sel=n))(params, batch)
+        got = tnet(tb, with_fine=True, train=True, n_views_sel=n)
+    _assert_views_match(got, want, (1, 8, 64, 64))
+
+
+def test_render_scale_matches_jax(nets4):
+    """render_scale=0.5 (tests/test_model.py:199): 32² renders of the
+    linearly resized rays; the fine stage samples the coarse renders
+    resized back to 64²; make_forward takes the scale."""
+    jnet, params, batch, tnet = nets4
+    want = jax.jit(lambda p, b: jnet.apply(p, b, with_fine=True, train=False,
+                                           render_scale=0.5))(params, batch)
+    got = make_forward(tnet, with_fine=True, render_scale=0.5)(
+        {k: torch.from_numpy(np.array(v)) for k, v in batch.items()})
+    _assert_views_match(got, want, (1, 8, 32, 32))
 
 
 def test_laranet_builds_on_the_card_unless_asked():

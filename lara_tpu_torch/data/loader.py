@@ -32,22 +32,25 @@ def collate(samples: list) -> dict:
 
 
 class DataLoader:
-    """Batches of `batch_size` scenes (the last, partial batch is dropped),
-    collated by `num_workers` threads (0: in the consumer) at most
-    `prefetch` batches ahead."""
+    """Batches of `batch_size` scenes (the last, partial batch is dropped
+    unless `drop_last` is False), collated by `num_workers` threads (0: in
+    the consumer) at most `prefetch` batches ahead."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
-                 num_workers: int = 4, seed: int = 0, prefetch: int = 4):
+                 num_workers: int = 4, seed: int = 0, drop_last: bool = True,
+                 prefetch: int = 4):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.num_workers = max(0, num_workers)
         self.seed = seed
+        self.drop_last = drop_last
         self.prefetch = prefetch
         self._epoch = 0
 
     def __len__(self):
-        return len(self.dataset) // self.batch_size
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def set_epoch(self, epoch: int):
         self._epoch = epoch

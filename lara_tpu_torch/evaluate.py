@@ -1,0 +1,194 @@
+"""Evaluation entry point of the port, the counterpart of `evaluate.py`
+(evaluation.py:30-176 of the reference):
+
+    python -m lara_tpu_torch.evaluate [config.yaml ...] [key.sub=value ...] [--device DEV]
+
+Configs merge on top of `configs/base.yaml` and `configs/infer.yaml`;
+trailing key=value pairs are dotlist overrides. The run is on the CUDA
+device (`--device cuda`, the default) and raises without one; `--device
+cpu` runs it on the CPU with the kernels' plain versions.
+
+Per scene of `infer_dataset` (in order, the last batch kept): the forward
+with the fine stage; PSNR, SSIM and, where their weights exist, LPIPS VGG /
+Alex on one horizontal mosaic of the novel views; the depth metrics where
+the batch has `tar_dep`; a gt / prediction panel `<save_folder>/<scene>.png`
+for the first 100 scenes; the orbit video (`infer.video_frames` > 0) and
+the TSDF mesh `<scene>.obj` (`infer.save_mesh`). The metrics go to
+`<metric_path>/<dataset_name>.json` with the keys of `evaluate.py`.
+
+What differs from `evaluate.py`: panels are PNG, not JPEG, and the video is
+PNG frames where OpenCV is absent (no GIF); scenes are not sharded over
+devices (one process, one device: the JAX package takes the same branch
+on one device); without `infer.ckpt_path` the weights are the port's
+seeded init (`LaRaNet`'s generator, seed 0), not the JAX package's
+`PRNGKey(0)` init.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+import warnings
+from pathlib import Path
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from lara_tpu_torch.config import load_config, parse_cli
+from lara_tpu_torch.data import DataLoader, get_dataset
+from lara_tpu_torch.data.loader import to_device
+from lara_tpu_torch.eval.lpips import load_lpips
+from lara_tpu_torch.eval.metrics import abs_error, acc_threshold, psnr, ssim
+from lara_tpu_torch.eval.render_artifacts import extract_mesh, render_video
+from lara_tpu_torch.eval.vis import write_png
+from lara_tpu_torch.models import LaRaNet
+from lara_tpu_torch.train.__main__ import split_device
+from lara_tpu_torch.train.checkpoint import restore_params
+from lara_tpu_torch.train.step import make_forward
+
+CONFIGS = Path(__file__).resolve().parents[1] / "configs"
+
+
+def main(argv: Optional[List[str]] = None, dtype: torch.dtype = torch.bfloat16) -> dict:
+    """Evaluate as the command line asks; returns the metrics dict that is
+    written to the JSON. `dtype` is the network's autocast type."""
+    rest, device = split_device(list(sys.argv[1:] if argv is None else argv))
+    device = torch.device(device or "cuda")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("lara_tpu_torch.evaluate runs on the CUDA device, and none is "
+                           "available; pass --device cpu to evaluate on the CPU")
+    paths, overrides = parse_cli(rest)
+    cfg = load_config(str(CONFIGS / "base.yaml"), str(CONFIGS / "infer.yaml"), *paths,
+                      overrides=overrides)
+
+    ds_cfg = cfg.infer_dataset
+    loader = DataLoader(get_dataset(ds_cfg.dataset_name)(ds_cfg), ds_cfg.batch_size,
+                        shuffle=False, num_workers=ds_cfg.num_workers, drop_last=False)
+    net = LaRaNet(cfg, dtype=dtype, device=device)
+    if cfg.infer.ckpt_path:
+        net.load_state_dict(restore_params(cfg.infer.ckpt_path), strict=True)
+        print(f"restored params from {cfg.infer.ckpt_path}")
+
+    lpips_vgg_fn = _try_load_lpips("vgg", cfg.infer.require_lpips, device)
+    lpips_alex_fn = _try_load_lpips("alex", cfg.infer.require_lpips, device)
+    artifacts = cfg.infer.video_frames > 0 or cfg.infer.save_mesh
+    fwd = make_forward(net, with_fine=True, return_buffer=artifacts,
+                       render_scale=cfg.infer.render_img_scale)
+
+    os.makedirs(cfg.infer.save_folder, exist_ok=True)
+    os.makedirs(cfg.infer.metric_path, exist_ok=True)
+    n_view = cfg.n_views
+    names, psnrs, ssims, depth_accs = [], [], [], []
+    lpips_vggs, lpips_alexs = [], []
+
+    for batch in loader:
+        out = fwd(to_device(batch, device))
+        img_key = "image_fine" if "image_fine" in out else "image"
+        dep_key = "depth_fine" if "depth_fine" in out else "depth"
+        n_scenes = int(batch["tar_rgb"].shape[0])
+
+        for j in range(n_scenes):
+            name = str(batch["meta"][j]["scene"]).split(".")[0]
+            pred = out[img_key][j].float().cpu().numpy()          # [N, H, W, 3]
+            gt = np.asarray(batch["tar_rgb"][j])
+
+            pred_m, gt_m = (pred[n_view:], gt[n_view:]) if cfg.infer.eval_novel_view_only \
+                else (pred, gt)
+            if pred_m.size:
+                # ONE horizontal mosaic of the selected views: pooled PSNR, a
+                # single SSIM and a single LPIPS call (evaluation.py:75-95)
+                mosaic_p = np.concatenate(list(pred_m), axis=1)
+                mosaic_g = np.concatenate(list(gt_m), axis=1)
+                psnrs.append(psnr(mosaic_p, mosaic_g))
+                ssims.append(ssim(mosaic_p, mosaic_g, device=device))
+                if lpips_vgg_fn is not None:
+                    lpips_vggs.append(lpips_vgg_fn(mosaic_g, mosaic_p))
+                if lpips_alex_fn is not None:
+                    lpips_alexs.append(lpips_alex_fn(mosaic_g, mosaic_p))
+
+            if len(cfg.infer.eval_depth) and "tar_dep" in batch:
+                depth_accs.append(depth_metrics(
+                    out[dep_key][j, ..., 0].float().cpu().numpy(), batch["tar_dep"][j],
+                    batch["tar_msk"][j], cfg.infer.eval_depth))
+
+            if len(names) < 100:
+                _save_panel(os.path.join(cfg.infer.save_folder, f"{name}.png"), gt, pred)
+
+            if artifacts:
+                gauss = tuple(a[j] for a in out["render_pkg"]["fine"])
+                tm = np.asarray(batch["transform_mats"][j]).reshape(4, 4)
+                if cfg.infer.video_frames > 0:
+                    sample_j = {k: v if k == "meta" else v[j:j + 1] for k, v in batch.items()}
+                    render_video(os.path.join(cfg.infer.save_folder, f"{name}_video.mp4"),
+                                 gauss, cfg, tm, n_frames=cfg.infer.video_frames,
+                                 sample=sample_j)
+                if cfg.infer.save_mesh:
+                    extract_mesh(os.path.join(cfg.infer.save_folder, f"{name}.obj"),
+                                 gauss, cfg, tm)
+
+            names.append(name)
+            print(f"[{len(names)}/{len(loader) * n_scenes}] {name} "
+                  f"psnr={psnrs[-1] if psnrs else float('nan'):.2f}")
+        del out
+
+    metrics = {
+        "scenes": names,
+        "psnr": psnrs, "ssim": ssims,
+        "lpips_vgg": lpips_vggs, "lpips_alex": lpips_alexs,
+        "depth": depth_accs,
+        "mean_psnr": float(np.mean(psnrs)) if psnrs else None,
+        "mean_ssim": float(np.mean(ssims)) if ssims else None,
+        "mean_lpips_vgg": float(np.mean(lpips_vggs)) if lpips_vggs else None,
+        "mean_lpips_alex": float(np.mean(lpips_alexs)) if lpips_alexs else None,
+        "mean_depth": np.mean(depth_accs, axis=0).tolist() if depth_accs else None,
+    }
+    out_path = os.path.join(cfg.infer.metric_path, f"{ds_cfg.dataset_name}.json")
+    with open(out_path, "w") as f:
+        json.dump(metrics, f, indent=2)
+    print(f"metrics -> {out_path}")
+    if metrics["mean_psnr"] is not None:
+        print(f"mean PSNR {metrics['mean_psnr']:.3f}  mean SSIM {metrics['mean_ssim']:.4f}")
+    return metrics
+
+
+def depth_metrics(depth_pred, depth_gt, mask, thresholds) -> List[float]:
+    """[mean |err|, acc@τ for each τ] within the object mask
+    (evaluate.py:116-123)."""
+    mask = np.asarray(mask).astype(bool)
+    accs = [float(abs_error(depth_pred, depth_gt, mask).mean())]
+    return accs + [float(acc_threshold(depth_pred, depth_gt, mask, t).mean())
+                   for t in thresholds]
+
+
+def _try_load_lpips(net: str = "vgg", required: bool = False, device="cpu"):
+    """LPIPS needs pretrained VGG / Alex weights. When they are missing or
+    corrupt, warn LOUDLY and skip the metric, or raise under
+    infer.require_lpips=True (the reference always raises,
+    evaluation.py:48-49)."""
+    try:
+        return load_lpips(net=net, device=device)
+    except Exception as e:
+        if required:
+            raise RuntimeError(
+                f"LPIPS-{net} weights unavailable and infer.require_lpips=True: "
+                f"{e!r}. Convert them with tools/convert_lpips.py.") from e
+        warnings.warn(
+            f"LPIPS-{net} weights unavailable ({e!r}) — the lpips_{net} "
+            "metric will be MISSING from the report. Convert weights with "
+            "tools/convert_lpips.py or set infer.require_lpips=True to fail "
+            "instead.", RuntimeWarning, stacklevel=2)
+        return None
+
+
+def _save_panel(path: str, gt: np.ndarray, pred: np.ndarray) -> None:
+    """The gt views over the predicted ones, 8 bits as evaluate.py writes
+    them."""
+    panel = np.concatenate([np.concatenate(list(gt), axis=1),
+                            np.concatenate(list(pred), axis=1)], axis=0)
+    write_png(path, (panel * 255).clip(0, 255).astype(np.uint8))
+
+
+if __name__ == "__main__":
+    main()

@@ -47,7 +47,11 @@ def test_every_module_imports(probe):
                 "lara_tpu_torch.data.decode", "lara_tpu_torch.data.synthetic",
                 "lara_tpu_torch.data.gobjverse", "lara_tpu_torch.data.loader",
                 "lara_tpu_torch.train.checkpoint", "lara_tpu_torch.train.loop",
-                "lara_tpu_torch.train.__main__", "lara_tpu_torch.eval.vis"}
+                "lara_tpu_torch.train.__main__", "lara_tpu_torch.eval.vis",
+                "lara_tpu_torch.eval.metrics", "lara_tpu_torch.eval.lpips",
+                "lara_tpu_torch.eval.video_path", "lara_tpu_torch.eval.pose_interp",
+                "lara_tpu_torch.eval.tsdf", "lara_tpu_torch.eval.render_artifacts",
+                "lara_tpu_torch.evaluate", "lara_tpu_torch.eval_all"}
     assert expected <= set(probe["modules"])
 
 

@@ -99,7 +99,25 @@ each prints its seconds:
      prints the mean PSNR / SSIM, seconds per scene split into forward,
      metrics, panel write, video renders and write, mesh renders and the
      TSDF, and the video path's renders per second;
-  12. a JSON line describing the kernels (with each one's bound at the
+  12. infer datasets, at the production width (`configs/infer.yaml`, 512²,
+     flash attention, seeded weights): a GSO folder (3 sphere scenes × 24
+     views on a sphere of cameras; RGBA PNGs written with every row filter
+     in turn, z-depth PFMs, a Blender-convention transforms.json), two
+     instant3d mosaics and a 16-view LLFF capture are written; each filter
+     is checked to round-trip through the port's PNG decoder and the decode
+     of a 512² RGBA file with adaptive filters is timed; the seeded network
+     goes through a Lightning-format payload (with a class this process
+     cannot import) and `python -m lara_tpu_torch.tools.convert_checkpoint`;
+     `evaluate` runs GSO with depth metrics from the converted checkpoint
+     and from the seeded weights (metrics equal), and instant3d with a
+     24-frame video (no novel view: no PSNR); two mipnerf360 samples go
+     through `make_forward` and `render_video` on the LLFF spiral. Every
+     scene must launch 16 blend forwards and 12 flash forwards (GSO), 8 +
+     24 and 12 (instant3d, mipnerf360), the plain blend never; prints the
+     seconds per GSO scene split into sample load (PNG decode, resize and
+     PFM read per call), forward, metrics, depth metrics and panel, and
+     KMeans at the dataset's init;
+  13. a JSON line describing the kernels (with each one's bound at the
      path's shapes), the `nvidia-smi` line, and as the last line
      `{"ok": true, "device": {...}}`.
 
@@ -713,12 +731,14 @@ def flash_phase(dev) -> dict:
     return res
 
 
-def check_outputs(out: dict, n_views: int):
+def check_outputs(out: dict, n_views: int, views: int = 0):
+    """Shapes (B=1, `views` or 2·n_views views at 512²), finite values and
+    some coverage of a forward's outputs."""
     for key in ("image", "depth", "acc_map", "rend_normal", "rend_dist", "depth_normal"):
         for k in (key, key + "_fine"):
             want = {"image": (3,), "depth": (1,), "rend_normal": (3,),
                     "depth_normal": (3,)}.get(key, ())
-            shape = (1, 2 * n_views, H, W) + want
+            shape = (1, views or 2 * n_views, H, W) + want
             if tuple(out[k].shape) != shape:
                 raise AssertionError(f"{k}: shape {tuple(out[k].shape)} != {shape}")
             if not bool(torch.isfinite(out[k]).all()):
@@ -1359,42 +1379,67 @@ def trainer_phase(dev, tmp: str) -> dict:
 
 EVAL_VIDEO_FRAMES = 120
 MESH_RENDERS = 48                       # render_artifacts.extract_mesh: 3 elevations × 16
-EVAL_SPLIT = ("forward", "metrics", "panel write", "video renders", "video write",
-              "mesh renders", "TSDF integrate + extract + save")
+EVAL_SPLIT = ("sample load", "forward", "metrics", "depth metrics", "panel write",
+              "video renders", "video write", "mesh renders", "TSDF integrate + extract + save")
+# the GSO dataset's readers, timed inside "sample load"
+SAMPLE_PARTS = ("PNG decode", "PNG resize", "PFM read")
 
 
 @contextlib.contextmanager
 def timed_evaluate(log: dict):
-    """Wrap `lara_tpu_torch.evaluate`'s forward, metrics, panel writer, video
-    and mesh, and the renders of `render_artifacts`: `log["s"]` collects the
-    seconds of each part of EVAL_SPLIT (the forward synchronised),
-    `log["scenes"]` each scene's kernel launches (from one forward to the
-    next; batch size 1), `log["plain_blend"]` the plain blend's runs and
-    `log["first_forward"]` the host clock at the first forward."""
+    """Wrap `lara_tpu_torch.evaluate`'s dataset, forward, metrics, panel
+    writer, video and mesh, the renders of `render_artifacts`, and the GSO
+    dataset's readers and KMeans: `log["s"]` collects the seconds of each
+    part of EVAL_SPLIT (the forward synchronised) from the first sample
+    load on, so that every scene's load and forward fall in it,
+    `log["setup"]` those spent before it (the dataset's KMeans),
+    `log["sub"]` / `log["calls"]` the seconds and calls of the readers in
+    SAMPLE_PARTS, `log["scenes"]` each scene's kernel launches (from one
+    forward to the next; batch size 1), `log["plain_blend"]` the plain
+    blend's runs and `log["window"]` the host clock at the first sample
+    load."""
     from lara_tpu_torch import evaluate
+    from lara_tpu_torch.data import gso
     from lara_tpu_torch.eval import render_artifacts
 
-    log.update(s=dict.fromkeys(EVAL_SPLIT, 0.0), scenes=[], plain_blend=0)
+    log.update(s=dict.fromkeys(EVAL_SPLIT, 0.0), setup={}, sub=dict.fromkeys(SAMPLE_PARTS, 0.0),
+               calls=dict.fromkeys(SAMPLE_PARTS, 0), scenes=[], plain_blend=0)
     saved = {name: getattr(evaluate, name) for name in
-             ("make_forward", "psnr", "ssim", "_save_panel", "render_video", "extract_mesh")}
+             ("make_forward", "psnr", "ssim", "depth_metrics", "_save_panel", "render_video",
+              "extract_mesh", "get_dataset")}
+    readers = {name: getattr(gso, name) for name in ("read_png", "resize", "read_pfm",
+                                                     "kmeans_groups")}
     frames, plain = render_artifacts._render_frames, cuda_blend.blend_tiles_reference
     artifact = ["video"]
     renders_s = {"video": 0.0, "mesh": 0.0}
     marks = []
 
-    def timed(key, fn):
+    def timed(key, fn, into="s"):
         def run(*args, **kw):
             t0 = time.perf_counter()
+            if key == "sample load":
+                log.setdefault("window", t0)
             res = fn(*args, **kw)
-            log["s"][key] += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            if into == "sub":
+                log["sub"][key] += dt
+                log["calls"][key] += 1
+            elif "window" in log:
+                log["s"][key] += dt
+            else:
+                log["setup"][key] = log["setup"].get(key, 0.0) + dt
             return res
         return run
+
+    def get_dataset(name):
+        cls = saved["get_dataset"](name)
+        return type(cls.__name__, (cls,), {"__getitem__": timed("sample load",
+                                                                 cls.__getitem__)})
 
     def make_forward(*args, **kw):
         fwd = saved["make_forward"](*args, **kw)
 
         def run(batch):
-            log.setdefault("first_forward", time.perf_counter())
             marks.append(launches())
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1428,10 +1473,15 @@ def timed_evaluate(log: dict):
         return plain(*args, **kw)
 
     evaluate.make_forward = make_forward
+    evaluate.get_dataset = get_dataset
     evaluate.psnr, evaluate.ssim = timed("metrics", saved["psnr"]), timed("metrics", saved["ssim"])
+    evaluate.depth_metrics = timed("depth metrics", saved["depth_metrics"])
     evaluate._save_panel = timed("panel write", saved["_save_panel"])
     evaluate.render_video = artifacts("video", saved["render_video"])
     evaluate.extract_mesh = artifacts("mesh", saved["extract_mesh"])
+    for name, key in zip(("read_png", "resize", "read_pfm"), SAMPLE_PARTS):
+        setattr(gso, name, timed(key, readers[name], into="sub"))
+    gso.kmeans_groups = timed("KMeans", readers["kmeans_groups"])
     render_artifacts._render_frames = render_frames
     cuda_blend.blend_tiles_reference = plain_blend
     try:
@@ -1441,15 +1491,18 @@ def timed_evaluate(log: dict):
     finally:
         for name, fn in saved.items():
             setattr(evaluate, name, fn)
+        for name, fn in readers.items():
+            setattr(gso, name, fn)
         render_artifacts._render_frames = frames
         cuda_blend.blend_tiles_reference = plain
 
 
-def run_evaluate(tag: str, args: list, want: dict, folder: str) -> tuple:
+def run_evaluate(tag: str, args: list, want: dict, folder: str, scored: bool = True) -> tuple:
     """`python -m lara_tpu_torch.evaluate` through its `main` in this process
     (`args` name the save and metric folders under `folder`); raises unless
     every scene launched exactly `want`, the plain blend never ran, and the
-    metrics are finite and in their JSON. Returns (metrics, log)."""
+    metrics are finite and in their JSON (`scored=False`: a dataset without
+    novel views, which has no PSNR). Returns (metrics, log)."""
     import os
 
     from lara_tpu_torch.evaluate import main as evaluate_main
@@ -1469,18 +1522,37 @@ def run_evaluate(tag: str, args: list, want: dict, folder: str) -> tuple:
         raise AssertionError(f"evaluate {tag}: launches per scene {log['scenes']}, "
                              f"expected {want} for each of {n} scenes")
     values = metrics["psnr"] + metrics["ssim"]
-    if not n or len(values) != 2 * n or not np.all(np.isfinite(values)):
+    if not n or len(values) != 2 * n * scored or not np.all(np.isfinite(values)):
         raise AssertionError(f"evaluate {tag}: metrics {metrics}")
-    if not os.path.isfile(os.path.join(folder, f"{tag}_metrics", "synthetic.json")):
+    name = next((a.split("=", 1)[1] for a in args if a.startswith("infer_dataset.dataset_name=")),
+                "gobjeverse")
+    if not os.path.isfile(os.path.join(folder, f"{tag}_metrics", f"{name}.json")):
         raise AssertionError(f"evaluate {tag}: no metrics JSON")
-    setup = log["first_forward"] - t0                     # config, net, weights, dataset
+    setup = log["window"] - t0                 # config, net, weights, dataset
     parts = {k: v / n for k, v in log["s"].items() if v}
-    parts["rest (loader, host copies)"] = (wall - setup) / n - sum(parts.values())
-    print(f"[evaluate-{tag}] {n} scenes in {wall:.2f} s, set-up {setup:.2f} s: mean PSNR "
-          f"{metrics['mean_psnr']:.4f} mean SSIM {metrics['mean_ssim']:.5f}; launches per "
-          f"scene {log['scenes'][0]}; seconds per scene after the set-up "
+    parts["rest (host copies)"] = (wall - setup) / n - sum(parts.values())
+    quality = (f"mean PSNR {metrics['mean_psnr']:.4f} mean SSIM {metrics['mean_ssim']:.5f}"
+               if scored else "no novel views")
+    print(f"[evaluate-{tag}] {n} scenes in {wall:.2f} s, set-up {setup:.2f} s "
+          f"({', '.join(f'{k} {v:.4f}' for k, v in log['setup'].items())}): {quality}; "
+          f"launches per scene {log['scenes'][0]}; seconds per scene after the set-up "
           f"{(wall - setup) / n:.4f}: " + "; ".join(f"{k} {v:.4f}" for k, v in parts.items()))
+    if any(log["calls"].values()):
+        print(f"[evaluate-{tag}] inside sample load, every sample: " + "; ".join(
+            f"{k} {log['sub'][k] / log['calls'][k]:.4f} s per call ({log['calls'][k]} calls)"
+            for k in SAMPLE_PARTS if log["calls"][k]))
     return metrics, log
+
+
+def check_video(folder: str, name: str, frames: int) -> None:
+    """The video `<name>_video.mp4` in `folder`, or its `frames` PNG frames
+    where OpenCV is absent."""
+    import os
+
+    video = os.path.join(folder, f"{name}_video")
+    if not os.path.isfile(video + ".mp4") and not (os.path.isdir(video) and sorted(
+            os.listdir(video)) == [f"frame_{i:04d}.png" for i in range(frames)]):
+        raise AssertionError(f"the video of {name} is incomplete")
 
 
 def check_artifacts(folder: str, names: list, frames: int) -> dict:
@@ -1491,12 +1563,9 @@ def check_artifacts(folder: str, names: list, frames: int) -> dict:
     sizes = {}
     for name in names:
         base = os.path.join(folder, name)
-        video = base + "_video"
         if not os.path.isfile(base + ".png"):
             raise AssertionError(f"evaluate: no panel {base}.png")
-        if not os.path.isfile(video + ".mp4") and not (os.path.isdir(video) and sorted(
-                os.listdir(video)) == [f"frame_{i:04d}.png" for i in range(frames)]):
-            raise AssertionError(f"evaluate: the video of {name} is incomplete")
+        check_video(folder, name, frames)
         with open(base + ".obj") as f:
             lines = f.read().splitlines()
         sizes[name] = (sum(ln.startswith("v ") for ln in lines),
@@ -1566,8 +1635,169 @@ def evaluate_phase(dev, tmp: str, trainer: dict) -> dict:
     return {"launches": total}
 
 
+INFER_VIDEO_FRAMES = 24
+LLFF_SIZE = (512, 512)                  # the served size of the LLFF capture (W, H)
+
+
+def png_phase_checks(path: str) -> float:
+    """A GSO render re-encoded with each row filter alone and with libpng's
+    adaptive choice decodes to itself on this host; returns the median
+    seconds of decoding the adaptive file (512² RGBA)."""
+    from lara_tpu_torch.data.image_io import decode_png, encode_png, read_png
+
+    img = read_png(path)
+    for filters in (0, 1, 2, 3, 4, "adaptive"):
+        if not np.array_equal(decode_png(encode_png(img, filters)), img):
+            raise AssertionError(f"PNG filter {filters}: the decoder does not invert the encoder")
+    data = encode_png(img, "adaptive")
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        decode_png(data)
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def lightning_payload(path: str, sd: dict) -> list:
+    """The reference's checkpoint form: `state_dict` with the network under
+    `net.`, two timm keys the network never reads, and hyper-parameters of
+    a class the loading process cannot import. Returns the extra keys."""
+    import types
+
+    mod = types.ModuleType("lightning_stand_in")
+    mod.AttributeDict = type("AttributeDict", (dict,), {"__module__": mod.__name__})
+    sys.modules[mod.__name__] = mod
+    extra = {"net.img_encoder.model.head.weight": torch.zeros(1000, 768),
+             "net.img_encoder.model.head.bias": torch.zeros(1000)}
+    try:
+        torch.save({"state_dict": {**{"net." + k: v for k, v in sd.items()}, **extra},
+                    "hyper_parameters": mod.AttributeDict(lr=4e-4), "epoch": 29}, path)
+    finally:
+        del sys.modules[mod.__name__]
+    return sorted(extra)
+
+
+def infer_datasets_phase(dev, tmp: str, smi: str) -> dict:
+    """(g) The evaluation datasets and the checkpoint converter at the
+    production width (`configs/infer.yaml`, the flagship network, 512²,
+    B=1, 4 input views, eval budgets 512 / 262,144, flash attention), on
+    data written at the start: a GSO folder (3 sphere scenes × 24 views on
+    a sphere of cameras, RGBA PNGs with every row filter in turn, analytic
+    depth PFMs, Blender-convention transforms.json), two instant3d 2×2
+    mosaics of 512² tiles, and a 16-view LLFF capture stored at 1024².
+    The seeded network goes through a Lightning-format payload and
+    `python -m lara_tpu_torch.tools.convert_checkpoint`; GSO is evaluated
+    with depth metrics from the converted checkpoint and again from the
+    seeded weights (the metrics must be equal), instant3d with a 24-frame
+    video, and two mipnerf360 samples go through `make_forward` and
+    `render_video` on the LLFF spiral. Launches are checked per scene."""
+    import os
+
+    from lara_tpu_torch.data import MipNeRF360Dataset
+    from lara_tpu_torch.data.loader import collate, to_device
+    from lara_tpu_torch.data.synthetic import (write_gso_folder, write_instant3d_folder,
+                                               write_llff_folder)
+    from lara_tpu_torch.eval.render_artifacts import render_video
+
+    t_phase = time.perf_counter()
+    none = {k: 0 for k in launches()}
+    cfg = load_config("configs/base.yaml", "configs/infer.yaml")
+    fwd_flash = {"flash_fwd": cfg.model.encoder_depth}
+    t0 = time.perf_counter()
+    gso_root = write_gso_folder(os.path.join(tmp, "gso"), n_scenes=3, n_views=24, size=512)
+    i3d_root = write_instant3d_folder(os.path.join(tmp, "instant3d"), n_scenes=2, tile=512)
+    llff_root = write_llff_folder(os.path.join(tmp, "llff"), n_views=16, size=LLFF_SIZE)
+    write_s = time.perf_counter() - t0
+    decode_s = png_phase_checks(os.path.join(gso_root, "object_000", "r_000.png"))
+    print(f"[infer] data written in {write_s:.2f} s; PNG decode of a 512² RGBA render with "
+          f"adaptive filters {decode_s:.4f} s (median of 5; aim 0.25); every filter "
+          f"round-trips on this host; {smi}")
+
+    # the converter, in its own process, on the seeded flagship weights
+    t0 = time.perf_counter()
+    ckpt, out = os.path.join(tmp, "epoch=29.ckpt"), os.path.join(tmp, "converted")
+    extra = lightning_payload(ckpt, LaRaNet(cfg, device="cpu").state_dict())
+    res = subprocess.run([sys.executable, "-m", "lara_tpu_torch.tools.convert_checkpoint",
+                          ckpt, out], cwd=str(Path(__file__).resolve().parent),
+                         capture_output=True, text=True, timeout=600)
+    if res.returncode != 0 or f"dropped {len(extra)} keys" not in res.stdout:
+        raise AssertionError(f"convert_checkpoint failed ({res.returncode}): "
+                             f"{res.stdout[-2000:]} {res.stderr[-2000:]}")
+    print(f"[infer] converter {time.perf_counter() - t0:.2f} s: {res.stdout.strip()[-300:]}")
+
+    gso_args = ["infer_dataset.dataset_name=GSO", f"infer_dataset.data_root={gso_root}",
+                "infer_dataset.batch_size=1", "infer_dataset.num_workers=0",
+                "infer.eval_depth=[0.005,0.01,0.02]", "model.flash_attn=True"]
+    # a GSO sample holds the n_views inputs and 4 novel views; each is
+    # rendered coarse and fine
+    want_gso = {**none, "blend_fwd": 2 * (cfg.n_views + 4), **fwd_flash}
+    res_ckpt, log_ckpt = run_evaluate("gso", gso_args + [f"infer.ckpt_path={out}"], want_gso,
+                                      tmp)
+    res_seed, _ = run_evaluate("gso-seeded", gso_args, want_gso, tmp)
+    depth = np.array(res_ckpt["depth"])
+    if depth.shape != (3, 4) or not np.isfinite(depth).all():
+        raise AssertionError(f"GSO depth metrics {res_ckpt['depth']}")
+    for key in ("scenes", "psnr", "ssim", "depth"):
+        if res_ckpt[key] != res_seed[key]:
+            raise AssertionError(f"GSO {key} from the converted checkpoint {res_ckpt[key]} "
+                                 f"differ from the seeded weights' {res_seed[key]}")
+    n = len(res_ckpt["scenes"])
+    per_scene = {**{k: v / n for k, v in log_ckpt["s"].items() if v},
+                 **{f"{k} per call": log_ckpt["sub"][k] / log_ckpt["calls"][k]
+                    for k in SAMPLE_PARTS if log_ckpt["calls"][k]},
+                 "KMeans at dataset init (all scenes)": log_ckpt["setup"].get("KMeans", 0.0)}
+    print("[infer] GSO seconds per scene (converted checkpoint): " + "; ".join(
+        f"{k} {v:.4f}" for k, v in per_scene.items()) + f"; mean depth {res_ckpt['mean_depth']}"
+        f"; equal to the seeded weights' metrics; {smi}")
+
+    # instant3d: 4 views, no novel view (no PSNR), a 24-frame orbit
+    i3d_args = ["infer_dataset.dataset_name=instant3d", f"infer_dataset.data_root={i3d_root}",
+                "infer_dataset.batch_size=1", "infer_dataset.num_workers=0", "n_views=4",
+                f"infer.video_frames={INFER_VIDEO_FRAMES}", "model.flash_attn=True"]
+    want_i3d = {**none, "blend_fwd": 2 * 4 + INFER_VIDEO_FRAMES, **fwd_flash}
+    res_i3d, _ = run_evaluate("instant3d", i3d_args, want_i3d, tmp, scored=False)
+    for name in res_i3d["scenes"]:
+        check_video(os.path.join(tmp, "instant3d"), name, INFER_VIDEO_FRAMES)
+
+    # mipnerf360: its nominal 1000 samples are not evaluate's to loop over;
+    # two samples (the train split: 16 views hold out 2) through the forward
+    # and the LLFF spiral
+    t0 = time.perf_counter()
+    mcfg = load_config("configs/base.yaml", "configs/infer.yaml", overrides=[
+        "infer_dataset.dataset_name=mipnerf360", f"infer_dataset.data_root={llff_root}",
+        "infer_dataset.split=train", "model.flash_attn=True"])
+    ds = MipNeRF360Dataset(mcfg.infer_dataset)
+    init_s = time.perf_counter() - t0
+    if ds.imgs.shape[1:] != (LLFF_SIZE[1], LLFF_SIZE[0], 3):
+        raise AssertionError(f"mipnerf360 images {ds.imgs.shape}")
+    fwd = make_forward(LaRaNet(mcfg, device=dev), return_buffer=True)
+    reset_launches()
+    for i in range(2):
+        batch = collate([ds[i]])
+        out_i = fwd(to_device(batch, dev))
+        check_outputs(out_i, mcfg.n_views, views=4)
+        gauss = tuple(a[0] for a in out_i["render_pkg"]["fine"])
+        render_video(os.path.join(tmp, "mipnerf", f"sample_{i}_video.mp4"), gauss, mcfg,
+                     np.eye(4, dtype=np.float32), n_frames=INFER_VIDEO_FRAMES, sample=batch)
+        check_video(os.path.join(tmp, "mipnerf"), f"sample_{i}", INFER_VIDEO_FRAMES)
+    torch.cuda.synchronize()
+    got = launches()
+    want_mip = {**none, "blend_fwd": 2 * (2 * 4 + INFER_VIDEO_FRAMES),
+                "flash_fwd": 2 * cfg.model.encoder_depth}
+    if got != want_mip:
+        raise AssertionError(f"mipnerf360 launches {got}, expected {want_mip}")
+    print(f"[infer] mipnerf360: dataset init (16 views, INTER_AREA 2× down to {LLFF_SIZE}) "
+          f"{init_s:.2f} s,"
+          f" 2 samples with {INFER_VIDEO_FRAMES}-frame videos {time.perf_counter() - t0 - init_s:.2f}"
+          f" s; launches {got}")
+    print(f"[infer] phase {time.perf_counter() - t_phase:.2f} s")
+    total = {k: want_gso[k] * 2 * n + want_i3d[k] * len(res_i3d["scenes"]) + want_mip[k]
+             for k in none}
+    return {"launches": total}
+
+
 def kernel_records(kernel, backward, flash_res, serving, binning, train, train_knobs,
-                   evaluation) -> list:
+                   evaluation, infer) -> list:
     """The kernels line: each kernel's launches on its paths (the blend
     forward's on the serving and evaluate paths, the flash forward's on the
     flash training and evaluate paths), its largest error against the plain
@@ -1583,7 +1813,8 @@ def kernel_records(kernel, backward, flash_res, serving, binning, train, train_k
 
     return [
         rec("blend_fwd", "blend_fwd.cu", pallas + ":398",
-            serving["launches"]["blend_fwd"] + evaluation["launches"]["blend_fwd"],
+            serving["launches"]["blend_fwd"] + evaluation["launches"]["blend_fwd"]
+            + infer["launches"]["blend_fwd"],
             max(r["max_abs_err"] for r in kernel.values()), kernel["eval"]["ms"],
             kernel["eval"]["plain_ms"], (kernel["eval"]["bound_ms"], kernel["eval"]["bound_by"])),
         rec("blend_fwd_stash", "blend_fwd.cu", pallas + ":398",
@@ -1598,7 +1829,8 @@ def kernel_records(kernel, backward, flash_res, serving, binning, train, train_k
             max(r["max_abs_err"] for r in backward.values()), bwd["replay_ms"],
             bwd["bwd_plain_ms"], bwd["replay_bound"]),
         rec("flash_fwd", "flash_fwd.cu", "lara_tpu/ops/flash.py:78",
-            train_knobs["launches"]["flash_fwd"] + evaluation["launches"]["flash_fwd"],
+            train_knobs["launches"]["flash_fwd"] + evaluation["launches"]["flash_fwd"]
+            + infer["launches"]["flash_fwd"],
             max(r["max_abs_err"] for r in flash_res.values()), fl["fwd_ms"],
             fl["fwd_plain_ms"], fl["fwd_bound"], fl["fwd_library_ms"]),
         rec("flash_bwd", "flash_bwd.cu", "lara_tpu/ops/flash.py:78",
@@ -1669,9 +1901,15 @@ def main() -> int:
                            evaluate_phase, dev, tmp, trainer)
     print("[evaluate] launches on the evaluate paths: "
           + json.dumps({k: v for k, v in evaluation["launches"].items() if v}))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="lara_infer_") as tmp:
+        infer = phase("infer datasets (GSO, converter, instant3d, mipnerf360)",
+                      infer_datasets_phase, dev, tmp, smi)
+    print("[infer] launches on the infer-dataset paths: "
+          + json.dumps({k: v for k, v in infer["launches"].items() if v}))
 
     records = kernel_records(kernel, backward, flash_res, serving, binning, train, train_knobs,
-                             evaluation)
+                             evaluation, infer)
     for r in records:
         if r["launches"] <= 0:
             raise AssertionError(f"{r['name']} was not launched on its path")

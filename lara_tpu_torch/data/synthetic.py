@@ -8,6 +8,7 @@ gives the same scenes, bit for bit, in either format."""
 
 from __future__ import annotations
 
+import json
 import os
 from concurrent.futures import ThreadPoolExecutor
 
@@ -15,6 +16,8 @@ import numpy as np
 
 from lara_tpu_torch.config import DatasetConfig
 from lara_tpu_torch.data.gobjverse import GObjaverseDataset
+from lara_tpu_torch.data.gso import B2C
+from lara_tpu_torch.data.image_io import encode_png, write_pfm
 from lara_tpu_torch.utils.camera import build_rays_np, fov_to_ixt
 
 
@@ -33,9 +36,10 @@ def _orbit_c2w(radius, azim, elev):
     return c2w
 
 
-def render_spheres(c2w, ixt, H, W, spheres):
+def render_spheres(c2w, ixt, H, W, spheres, with_depth: bool = False):
     """Analytic lambertian render of spheres [(center, radius, albedo)].
-    Returns rgba [H, W, 4] u8 and normal [H, W, 3] u8."""
+    Returns rgba [H, W, 4] u8 and normal [H, W, 3] u8, and with `with_depth`
+    the z-depth [H, W] f32 of the hits (0 elsewhere)."""
     rays = build_rays_np(c2w[None], ixt[None], H, W, 1.0)[0]
     o, d = rays[..., :3], rays[..., 3:]
     d = d / np.linalg.norm(d, axis=-1, keepdims=True)
@@ -63,8 +67,12 @@ def render_spheres(c2w, ixt, H, W, spheres):
 
     alpha = (np.isfinite(best_t)).astype(np.float32)
     rgba = np.concatenate([rgb, alpha[..., None]], -1)
-    return (np.clip(rgba, 0, 1) * 255).astype(np.uint8), \
-        ((nrm * 0.5 + 0.5) * 255).astype(np.uint8)
+    out = ((np.clip(rgba, 0, 1) * 255).astype(np.uint8),
+           ((nrm * 0.5 + 0.5) * 255).astype(np.uint8))
+    if with_depth:
+        z = np.where(alpha > 0, best_t * (d @ np.asarray(c2w[:3, 2], np.float32)), 0.0)
+        out += (z.astype(np.float32),)
+    return out
 
 
 def write_synthetic_store(path: str, n_scenes: int = 4, n_views: int = 12,
@@ -111,9 +119,7 @@ def write_synthetic_store(path: str, n_scenes: int = 4, n_views: int = 12,
                 np.save(os.path.join(scene, "groups", f"groups_{n}_{i}.npy"),
                         cl.astype(np.uint8))
 
-    with ThreadPoolExecutor(max_workers=min(n_scenes, os.cpu_count() or 1) or 1) as pool:
-        for fut in [pool.submit(write_scene, s) for s in range(n_scenes)]:
-            fut.result()
+    _in_threads(write_scene, [(s,) for s in range(n_scenes)])
     os.rename(tmp, path)
     return path
 
@@ -128,3 +134,143 @@ class SyntheticDataset(GObjaverseDataset):
             write_synthetic_store(cfg.data_root, n_scenes=max(4, min(cfg.n_scenes, 256)),
                                   img_size=tuple(cfg.img_size))
         super().__init__(cfg, rng=rng)
+
+
+# ------------------------------------------------- the evaluation datasets
+
+
+EVAL_FOV = 0.8              # field of view (radians) of every evaluation-layout writer
+EVAL_RADIUS = 1.5           # camera distance of the GSO and instant3d scenes
+LLFF_STORED = 2             # images_4/ holds twice the served size
+
+
+def _sphere_cameras(n: int, radius: float, rng: np.random.Generator) -> list:
+    """`n` OpenCV c2w looking at the origin from a Fibonacci sphere of
+    directions (the upper 80 %), radius and direction jittered."""
+    k = np.arange(n) + 0.5
+    elev = np.arcsin(1.0 - 1.6 * k / n)
+    azim = np.pi * (1 + 5 ** 0.5) * k
+    elev = elev + rng.normal(scale=0.03, size=n)
+    r = radius * (1 + rng.normal(scale=0.02, size=n))
+    return [_orbit_c2w(r[i], azim[i], np.clip(elev[i], -1.4, 1.4)) for i in range(n)]
+
+
+def _sphere_scene(rng: np.random.Generator, extent: float = 0.25) -> list:
+    return [(rng.uniform(-extent, extent, 3).astype(np.float32), float(rng.uniform(0.1, 0.3)),
+             rng.uniform(0.2, 1.0, 3).astype(np.float32)) for _ in range(rng.integers(2, 5))]
+
+
+def _in_threads(fn, items) -> None:
+    """fn(*item) for every item, a thread each up to the core count (NumPy
+    and zlib release the GIL in their array work); every result is read,
+    so a failure raises here."""
+    with ThreadPoolExecutor(max_workers=max(1, min(len(items), os.cpu_count() or 1))) as pool:
+        for fut in [pool.submit(fn, *it) for it in items]:
+            fut.result()
+
+
+def _write(path: str, data: bytes) -> None:
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def write_gso_folder(root: str, n_scenes: int = 3, n_views: int = 24, size: int = 512,
+                     depth_size: int | None = None, seed: int = 0) -> str:
+    """Sphere scenes in the GSO layout of `data/gso.py`: per scene
+    `object_{s:03d}/` with `transforms.json` (Blender-convention
+    `transform_matrix`, `intrinsic_matrix` of the size² renders),
+    `r_{i:03d}.png` RGBA written with every row filter in turn
+    (`image_io.encode_png(..., "cycle")`) and the analytic z-depth
+    `depth/r_{i:03d}.pfm` at depth_size² (default size²), cameras spread
+    over a sphere of radius `EVAL_RADIUS`."""
+    rng = np.random.default_rng(seed)
+    depth_size = depth_size or size
+    fov = np.array([EVAL_FOV, EVAL_FOV], np.float32)
+    ixt = fov_to_ixt(fov, np.array([size, size]))
+    dixt = fov_to_ixt(fov, np.array([depth_size] * 2))
+    scenes = [(_sphere_scene(rng), _sphere_cameras(n_views, EVAL_RADIUS, rng))
+              for _ in range(n_scenes)]
+    jobs = []
+    for s, (spheres, cams) in enumerate(scenes):
+        scene = os.path.join(root, f"object_{s:03d}")
+        os.makedirs(os.path.join(scene, "depth"), exist_ok=True)
+        frames = [{"transform_matrix": (c2w @ B2C).tolist(), "intrinsic_matrix": ixt.tolist()}
+                  for c2w in cams]
+        with open(os.path.join(scene, "transforms.json"), "w") as f:
+            json.dump({"frames": frames}, f)
+        jobs += [(scene, i, c2w, spheres) for i, c2w in enumerate(cams)]
+
+    def view(scene, i, c2w, spheres):
+        rgba, _, depth = render_spheres(c2w, ixt, size, size, spheres, with_depth=True)
+        _write(os.path.join(scene, f"r_{i:03d}.png"), encode_png(rgba, "cycle"))
+        if depth_size != size:
+            depth = render_spheres(c2w, dixt, depth_size, depth_size, spheres,
+                                   with_depth=True)[2]
+        write_pfm(os.path.join(scene, "depth", f"r_{i:03d}.pfm"), depth)
+
+    _in_threads(view, jobs)
+    return root
+
+
+def write_instant3d_folder(root: str, n_scenes: int = 2, tile: int = 512, seed: int = 0) -> str:
+    """Sphere scenes in the Instant3D layout of `data/instant3d.py`: one
+    2×2 mosaic `scene_{s:02d}.png` (RGBA, tile² views) per scene and the
+    rig's `opencv_cameras.json` (4 views 90° apart at 20° elevation; w2c
+    translations at 1.7 × `EVAL_RADIUS`, the dataset divides them by 1.7)."""
+    rng = np.random.default_rng(seed)
+    ixt = fov_to_ixt(np.array([EVAL_FOV, EVAL_FOV], np.float32), np.array([tile, tile]))
+    cams = [_orbit_c2w(EVAL_RADIUS, a, np.deg2rad(20.0)) for a in np.arange(4) * np.pi / 2]
+    os.makedirs(root, exist_ok=True)
+    frames = []
+    for c2w in cams:
+        rig = c2w.copy()
+        rig[:3, 3] *= 1.7
+        frames.append({"w2c": np.linalg.inv(rig).tolist(), "fx": float(ixt[0, 0]),
+                       "fy": float(ixt[1, 1]), "cx": float(ixt[0, 2]), "cy": float(ixt[1, 2])})
+    with open(os.path.join(root, "opencv_cameras.json"), "w") as f:
+        json.dump({"frames": frames}, f)
+
+    def scene(s, spheres):
+        views = [render_spheres(c2w, ixt, tile, tile, spheres)[0] for c2w in cams]
+        mosaic = np.concatenate([np.concatenate(views[:2], 1), np.concatenate(views[2:], 1)], 0)
+        _write(os.path.join(root, f"scene_{s:02d}.png"), encode_png(mosaic))
+
+    _in_threads(scene, [(s, _sphere_scene(rng)) for s in range(n_scenes)])
+    return root
+
+
+def write_llff_folder(root: str, n_views: int = 16, size=(512, 512), seed: int = 0) -> str:
+    """A forward-facing sphere capture in the LLFF layout of
+    `data/mipnerf.py`: `poses_bounds.npy` ([N, 17]: "down-right-back" c2w
+    with the full-size [H, W, focal] column, near/far) for a capture of
+    4 × `size` (W, H), and `images_4/img_{i:03d}.png` RGB at `LLFF_STORED`
+    × `size`, so the dataset serves `size` after an INTER_AREA resize."""
+    rng = np.random.default_rng(seed)
+    W, H = size
+    spheres = [(np.array([x, y, z], np.float32), float(r), rng.uniform(0.2, 1.0, 3)
+                .astype(np.float32)) for x, y, z, r in
+               zip(rng.uniform(-0.6, 0.6, 6), rng.uniform(-0.4, 0.4, 6),
+                   rng.uniform(2.5, 4.5, 6), rng.uniform(0.2, 0.5, 6))]
+    stored = LLFF_STORED
+    focal = 0.5 * 4 * W / np.tan(0.5 * EVAL_FOV)           # at the capture's full size
+    f = focal * stored / 4
+    ixt = np.array([[f, 0, stored * W / 2], [0, f, stored * H / 2], [0, 0, 1]], np.float32)
+    rows, jobs = [], []
+    for i in range(n_views):
+        c2w = np.eye(4, dtype=np.float32)              # OpenCV: looking down +z
+        theta = 2 * np.pi * i / n_views
+        c2w[:3, 3] = [0.3 * np.cos(theta), 0.2 * np.sin(theta), 0.1 * np.sin(2 * theta)]
+        x, y, z, t = c2w[:3, 0], c2w[:3, 1], c2w[:3, 2], c2w[:3, 3]
+        pose = np.stack([y, x, -z, t, [4 * H, 4 * W, focal]], 1)
+        rows.append(np.concatenate([pose.ravel(), [1.5, 6.0]]))
+        jobs.append((i, c2w))
+    folder = os.path.join(root, "images_4")
+    os.makedirs(folder, exist_ok=True)
+    np.save(os.path.join(root, "poses_bounds.npy"), np.stack(rows))
+
+    def view(i, c2w):
+        rgba = render_spheres(c2w, ixt, stored * H, stored * W, spheres)[0]
+        _write(os.path.join(folder, f"img_{i:03d}.png"), encode_png(rgba[..., :3]))
+
+    _in_threads(view, jobs)
+    return root

@@ -14,6 +14,7 @@ from typing import List
 
 import numpy as np
 
+from lara_tpu_torch.data.mipnerf import average_pose
 from lara_tpu_torch.utils.camera import fov_to_ixt
 
 
@@ -98,19 +99,6 @@ def generate_instant3d_frames(N, img_size, transform_mats=None, elevation=0.0,
         c2w = step @ c2w
         frames.append(PathCamera(tm @ c2w, width, height, fovy, fovx, znear, zfar))
     return frames
-
-
-def average_pose(poses: np.ndarray) -> np.ndarray:
-    """Average c2w of LLFF poses [N,3,4] (center / viewing dir / up), a copy
-    of `lara_tpu/data/mipnerf.py:29`."""
-    center = poses[:, :3, 3].mean(0)
-    z = poses[:, :3, 2].sum(0)
-    z = z / np.linalg.norm(z)
-    y_ = poses[:, :3, 1].sum(0)
-    x = np.cross(y_, z)
-    x = x / np.linalg.norm(x)
-    y = np.cross(z, x)
-    return np.stack([x, y, z, center], 1)
 
 
 def _look_at(z_dir, y_hint, pos) -> np.ndarray:

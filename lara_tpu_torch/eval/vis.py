@@ -1,14 +1,15 @@
 """Visualisation panels for training and evaluation logs, the counterpart
 of `lara_tpu/eval/vis.py` (lightning/vis.py, tools/img_utils.py:159-176), in
-NumPy alone, with a PNG writer on `zlib`: the GPU machine has no cv2."""
+NumPy alone, written by the port's PNG encoder (`data/image_io.py`): the
+GPU machine has no cv2."""
 
 from __future__ import annotations
 
-import struct
-import zlib
 from typing import Dict
 
 import numpy as np
+
+from lara_tpu_torch.data.image_io import encode_png
 
 
 def jet(x8: np.ndarray) -> np.ndarray:
@@ -71,26 +72,13 @@ def vis_images(output: Dict, batch: Dict) -> Dict[str, np.ndarray]:
 
 
 def png_bytes(img: np.ndarray) -> bytes:
-    """Encode an [H, W, 3] (or [H, W]) image as an 8-bit PNG: float images
-    are read as [0, 1] and clipped, u8 images as they are."""
+    """Encode an [H, W, 3] (or [H, W]) image as an 8-bit PNG with filter 0:
+    float images are read as [0, 1] and clipped, u8 images as they are."""
     a = np.asarray(img)
     if a.dtype != np.uint8:
         a = np.round(np.clip(np.nan_to_num(a.astype(np.float32)), 0.0, 1.0) * 255.0)
         a = a.astype(np.uint8)
-    if a.ndim == 2:
-        a = a[..., None]
-    h, w, c = a.shape
-    color = {1: 0, 3: 2, 4: 6}[c]
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), a.reshape(h, w * c)], axis=1)
-
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-    return (b"\x89PNG\r\n\x1a\n"
-            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
-            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
-            + chunk(b"IEND", b""))
+    return encode_png(a, 0)
 
 
 def write_png(path: str, img: np.ndarray) -> None:

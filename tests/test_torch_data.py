@@ -263,10 +263,12 @@ def test_device_prefetch_order(stores):
 
 
 def test_registry():
-    for name in ("synthetic", "gobjeverse", "gobjaverse"):
+    for name in ("synthetic", "gobjeverse", "gobjaverse", "GSO", "instant3d", "mipnerf360"):
         assert get_dataset(name) is not None
+    with pytest.raises(KeyError, match="ROADMAP.md A.7"):
+        get_dataset("mvgen")
     with pytest.raises(KeyError, match="ROADMAP.md"):
-        get_dataset("GSO")
+        get_dataset("no_such_dataset")
 
 
 def test_vis_panels_match_jax():

@@ -1,7 +1,7 @@
 """Import hygiene of the port: every module of `lara_tpu_torch`, and
 `chip_smoke.py`, imports in a fresh interpreter without pulling in JAX, flax, the JAX package, PyYAML,
-h5py or OpenCV (the GPU machine has none of the last three); loading the
-configs does not pull them in either."""
+h5py, OpenCV, imageio, scikit-learn or Pillow (the GPU machine has none of
+the last six); loading the configs does not pull them in either."""
 
 import json
 import subprocess
@@ -10,7 +10,7 @@ from pathlib import Path
 
 import pytest
 
-FORBIDDEN = ("jax", "flax", "lara_tpu", "yaml", "h5py", "cv2")
+FORBIDDEN = ("jax", "flax", "lara_tpu", "yaml", "h5py", "cv2", "imageio", "sklearn", "PIL")
 REPO = Path(__file__).resolve().parents[1]
 
 _PROBE = """
@@ -51,7 +51,11 @@ def test_every_module_imports(probe):
                 "lara_tpu_torch.eval.metrics", "lara_tpu_torch.eval.lpips",
                 "lara_tpu_torch.eval.video_path", "lara_tpu_torch.eval.pose_interp",
                 "lara_tpu_torch.eval.tsdf", "lara_tpu_torch.eval.render_artifacts",
-                "lara_tpu_torch.evaluate", "lara_tpu_torch.eval_all"}
+                "lara_tpu_torch.evaluate", "lara_tpu_torch.eval_all",
+                "lara_tpu_torch.data.image_io", "lara_tpu_torch.data.kmeans",
+                "lara_tpu_torch.data.gso", "lara_tpu_torch.data.instant3d",
+                "lara_tpu_torch.data.mipnerf", "lara_tpu_torch.models.convert",
+                "lara_tpu_torch.tools.convert_checkpoint"}
     assert expected <= set(probe["modules"])
 
 

@@ -99,7 +99,29 @@ each prints its seconds:
      prints the mean PSNR / SSIM, seconds per scene split into forward,
      metrics, panel write, video renders and write, mesh renders and the
      TSDF, and the video path's renders per second;
-  12. infer datasets, at the production width (`configs/infer.yaml`, 512²,
+  12. data parallel, with `configs/synthetic256.yaml` on the trainer's
+     store: (a) the trainer (B=3, grad_accum 2, 6 micro-steps, the fine
+     stage from micro-step 4) in a process group of world size 1 over NCCL
+     and again with no group: launches per micro-step equal, the losses of
+     the first optimizer step bit for bit, and every gradient all-reduce
+     leaving the gradient bit for bit (the backward is not bit-reproducible
+     on the card, with or without a group: `grid_sampler_2d_backward` and
+     the bicubic pos-embed's backward have no deterministic implementation,
+     and bf16 rounds what they change); prints the all-reduce time of the
+     125,335,880-parameter gradient and the median micro-steps of both runs;
+     then together (b) `python -m torch.distributed.run --standalone
+     --nproc_per_node=1 -m lara_tpu_torch.train` for 2 micro-steps (exit 0,
+     scalars and a checkpoint), (c) two spawned ranks on the one card over
+     gloo, each on its slice of a global batch of 2, grad_accum 2, 4
+     micro-steps, in float32, against one process at batch 2 (each loss
+     within 5e-4 relative, the first all-reduced gradient within 5e-3
+     relative L2 per parameter) and against one process that forwards one
+     scene at a time as the ranks do (1e-4); the ranks' parameters bit for
+     bit after each optimizer step, only rank 0 writing; (d) `evaluate` on
+     those ranks at batch size 2 on (a)'s checkpoint over 4 held-out scenes
+     against one process at batch size 1: the same scenes, PSNR and SSIM
+     within 5e-3;
+  13. infer datasets, at the production width (`configs/infer.yaml`, 512²,
      flash attention, seeded weights): a GSO folder (3 sphere scenes × 24
      views on a sphere of cameras; RGBA PNGs written with every row filter
      in turn, z-depth PFMs, a Blender-convention transforms.json), two
@@ -117,7 +139,7 @@ each prints its seconds:
      seconds per GSO scene split into sample load (PNG decode, resize and
      PFM read per call), forward, metrics, depth metrics and panel, and
      KMeans at the dataset's init;
-  13. a JSON line describing the kernels (with each one's bound at the
+  14. a JSON line describing the kernels (with each one's bound at the
      path's shapes), the `nvidia-smi` line, and as the last line
      `{"ok": true, "device": {...}}`.
 
@@ -1796,11 +1818,379 @@ def infer_datasets_phase(dev, tmp: str, smi: str) -> dict:
     return {"launches": total}
 
 
+# one loader thread: the samples' random views and backgrounds are then
+# drawn in one order, and every run and rank loads the same samples
+DP_OVERRIDES = ["train_dataset.n_scenes=32", "test_dataset.n_scenes=32", "train.n_epoch=1",
+                "train_dataset.num_workers=1", "train.use_rand_views=True",
+                "train.vis_every_n_steps=0", "train.warmup_iters=2",
+                "train.limit_val_batches=0.25"]
+# (a) B=3 at grad_accum 2: 6 of the 9 batches of the 28 training scenes, the
+# fine stage from optimizer step 2 (micro-steps 4 and 5)
+DP_A = ["train.grad_accum=2", "train.limit_train_batches=0.67", "train.start_fine=1"]
+# (c) a global batch of 2, 1 per rank, at grad_accum 2: 4 of 14 batches, the
+# fine stage from optimizer step 1 (micro-steps 2 and 3); validation shards too
+DP_C = ["train.batch_size=2", "train_dataset.batch_size=2", "test_dataset.batch_size=2",
+        "train.grad_accum=2", "train.limit_train_batches=0.29", "train.start_fine=0"]
+# (b) the CLI: 2 micro-steps of B=3 at grad_accum 1
+DP_B = ["train.limit_train_batches=0.23"]
+DP_CONFIG, DP_IMG = "configs/synthetic256.yaml", 256
+DP_LOSS_RTOL = 5e-4            # tests/test_train.py:110
+# (c)'s first all-reduced gradient, in float32, against one process that
+# forwards one scene at a time as the ranks do (the f32 sums of the means
+# and of the all-reduce in another order); against one process at batch 2
+# it is held at TRAIN_GRAD_RTOL: a scene's forward rounds otherwise in a
+# batch of 2, and the blend's order of near-coincident surfels follows
+DP_SPLIT_RTOL = 1e-4
+DP_EVAL_ATOL = 5e-3            # tests/test_eval.py:270
+
+
+def float32_everywhere() -> None:
+    """No TF32 in matmuls or cuDNN convolutions (MS-SSIM's blur),
+    deterministic cuDNN."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
+def dp_config(store: str, logdir: str, *overrides) -> Config:
+    return load_config("configs/base.yaml", DP_CONFIG, overrides=[
+        f"train_dataset.data_root={store}", f"test_dataset.data_root={store}",
+        f"logger.dir={logdir}", *DP_OVERRIDES, *overrides])
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+@contextlib.contextmanager
+def dp_probes(rec: dict, dev, digests: bool):
+    """Record in `rec` what the data-parallel checks read: the seconds of
+    each gradient all-reduce, synchronised ("all_reduce_s"), and whether it
+    left every gradient as it was ("reduce_identity"); the all-reduced
+    gradient of the first optimizer step before the clip, on the host
+    ("grads"); with `digests`, a SHA-256 of the parameters after each
+    optimizer step ("digests"); the checkpoint files written and loggers
+    made in this process ("writes", "loggers"); the parameters' names
+    ("names")."""
+    import hashlib
+
+    from lara_tpu_torch.train import checkpoint, loop
+    from lara_tpu_torch.train import state as state_mod
+
+    reduce_, clip, apply = (state_mod.all_reduce_grads_, state_mod.clip_by_global_norm_,
+                            TrainState.apply_gradients)
+    write, logger_init = checkpoint._write, loop.RunLogger.__init__
+    rec.update(all_reduce_s=[], reduce_identity=[], grads=None, digests=[], writes=0, loggers=0)
+
+    def timed_reduce(params):
+        before = [prm.grad.clone() for prm in params]
+        sync(dev)
+        t0 = time.perf_counter()
+        reduce_(params)
+        sync(dev)
+        rec["all_reduce_s"].append(time.perf_counter() - t0)
+        rec["reduce_identity"].append(all(torch.equal(b, prm.grad)
+                                          for b, prm in zip(before, params)))
+
+    def first_grads(grads, max_norm):
+        if rec["grads"] is None:
+            rec["grads"] = [g.detach().cpu() for g in grads]
+        return clip(grads, max_norm)
+
+    def apply_gradients(self):
+        rec.setdefault("names", [n for n, _ in self.net.named_parameters()])
+        updated, info = apply(self)
+        if updated and digests:
+            h = hashlib.sha256()
+            for prm in self.params:
+                h.update(prm.detach().cpu().numpy().tobytes())
+            rec["digests"].append(h.hexdigest())
+        return updated, info
+
+    def counted(key, fn):
+        def run(*a, **kw):
+            rec[key] += 1
+            return fn(*a, **kw)
+        return run
+
+    state_mod.all_reduce_grads_, state_mod.clip_by_global_norm_ = timed_reduce, first_grads
+    TrainState.apply_gradients = apply_gradients
+    checkpoint._write = counted("writes", write)
+    loop.RunLogger.__init__ = counted("loggers", logger_init)
+    try:
+        yield
+    finally:
+        state_mod.all_reduce_grads_, state_mod.clip_by_global_norm_ = reduce_, clip
+        TrainState.apply_gradients = apply
+        checkpoint._write, loop.RunLogger.__init__ = write, logger_init
+
+
+@contextlib.contextmanager
+def per_scene_forward():
+    """LaRaNet's forward one scene at a time, its outputs concatenated: one
+    process then computes each scene as a rank with one scene does, and the
+    loss of the whole batch from it."""
+    forward = LaRaNet.forward
+
+    def split(self, batch, **kw):
+        n = len(next(iter(batch.values())))
+        outs = [forward(self, {k: v[i:i + 1] for k, v in batch.items()}, **kw) for i in range(n)]
+        return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+
+    LaRaNet.forward = split
+    try:
+        yield
+    finally:
+        LaRaNet.forward = forward
+
+
+def dp_train(dev, cfg: Config, digests: bool = False, f32: bool = False) -> dict:
+    """A `Trainer` fit of `cfg` on `dev` (one rank of the group there is, or
+    one process) under `counted_steps` and `dp_probes`, with `f32` the
+    network in float32 (no bf16 autocast); returns the trainer, each train
+    micro-step's loss, each step's launches, the launches of the fit and the
+    probes' records."""
+    import functools
+
+    from lara_tpu_torch.train import loop
+
+    log = [{"plain_blend": 0, "checkpoint_s": 0.0, "panel_write_s": 0.0}]
+    rec: dict = {}
+    reset_launches()
+    with counted_steps(log), dp_probes(rec, dev, digests):
+        if f32:
+            loop.LaRaNet = functools.partial(LaRaNet, dtype=torch.float32)
+        try:
+            tr = loop.Trainer(cfg, device=dev)
+        finally:
+            loop.LaRaNet = LaRaNet
+        tr.fit()
+    if log[0]["plain_blend"] and dev.type == "cuda":
+        raise AssertionError(f"data parallel: the plain blend ran {log[0]['plain_blend']} times")
+    return {"trainer": tr, "losses": [e["loss"] for e in log[1:] if e["kind"] == "train"],
+            "steps": [(e["kind"], e["launches"]) for e in log[1:]], "launches": launches(),
+            **rec}
+
+
+def dp_evaluate(dev, store: str, ckpts: str, folder: str, batch_size: int) -> tuple:
+    """`evaluate.main` on the checkpoint over the store's held-out scenes,
+    metrics only; returns (metrics, launches)."""
+    from lara_tpu_torch.evaluate import main as evaluate_main
+
+    reset_launches()
+    metrics = evaluate_main([
+        DP_CONFIG, "infer_dataset.dataset_name=synthetic", f"infer_dataset.data_root={store}",
+        f"infer_dataset.img_size=[{DP_IMG},{DP_IMG}]", f"infer_dataset.batch_size={batch_size}",
+        "infer_dataset.num_workers=0", f"infer.ckpt_path={ckpts}", "infer.video_frames=0",
+        "infer.save_mesh=False", f"infer.save_folder={folder}", f"infer.metric_path={folder}_m",
+        f"--device={dev}"])
+    return metrics, launches()
+
+
+def dp_rank(rank: int, tmp: str, store: str, ckpts: str, device: str) -> None:
+    """One of the two ranks of (c) and (d), spawned: its own gloo group on
+    `device` (both ranks on one card), the trainer on its slice of the
+    global batch of 2, then `evaluate` at batch size 2. Saves its results
+    (rank 0 also its first all-reduced gradient) under `tmp`."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    float32_everywhere()
+    dist.init_process_group("gloo", init_method=f"file://{os.path.join(tmp, 'gloo')}",
+                            rank=rank, world_size=2, timeout=datetime.timedelta(seconds=300))
+    try:
+        res = dp_train(dev, dp_config(store, os.path.join(tmp, "dp2"), *DP_C),
+                       digests=True, f32=True)
+        tr = res.pop("trainer")
+        res["n_sel"] = [m["n_sel"] for m in tr.micro_log]
+        res["micro_s"] = [m["seconds"] for m in tr.micro_log]
+        del tr
+        res["metrics"], res["eval_launches"] = dp_evaluate(
+            dev, store, ckpts, os.path.join(tmp, "eval2"), 2)
+        grads = res.pop("grads")
+        if rank == 0:
+            torch.save(grads, os.path.join(tmp, "dp2_grads.pt"))
+        torch.save(res, os.path.join(tmp, f"dp_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def rel_l2(got, want) -> float:
+    return (torch.linalg.vector_norm(got - want)
+            / max(torch.linalg.vector_norm(want).item(), 1e-30)).item()
+
+
+def dp_phase(dev, tmp: str, store: str) -> dict:
+    """(f) data parallelism on the one card, with `DP_CONFIG` on the trainer
+    phase's store: (a) the trainer in a process group of world size 1 over
+    NCCL and again with no group, bit for bit; then together (b) `python -m
+    torch.distributed.run --standalone --nproc_per_node=1 -m
+    lara_tpu_torch.train`, (c) two spawned ranks on `dev` over gloo, each
+    on its slice of a global batch of 2, against this process at the same
+    global batch, and (d) `evaluate` on those ranks at batch size 2 against
+    this process at batch size 1, on (a)'s checkpoint. Raises on any
+    failure; returns the launches of (a), (c) and (d)."""
+    import os
+
+    import torch.distributed as dist
+
+    t_phase = time.perf_counter()
+    # (a) world size 1, then no group
+    runs = {}
+    for tag in ("group", "none"):
+        torch.cuda.empty_cache()
+        if tag == "group":
+            dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                    init_method=f"file://{os.path.join(tmp, 'world1')}",
+                                    rank=0, world_size=1)
+        try:
+            run = dp_train(dev, dp_config(store, os.path.join(tmp, f"w1_{tag}"), *DP_A))
+        finally:
+            if tag == "group":
+                dist.destroy_process_group()
+        tr = run.pop("trainer")
+        run["params"] = {n: p.detach().cpu() for n, p in tr.net.named_parameters()}
+        run["micro"] = [(m["with_fine"], m["seconds"]) for m in tr.micro_log]
+        runs[tag] = run
+        del tr
+    g, n = runs["group"], runs["none"]
+    k = dp_config(store, tmp, *DP_A).train.grad_accum
+    if len(g["losses"]) != 6 or g["steps"] != n["steps"] or g["losses"][:k] != n["losses"][:k] \
+            or len(g["reduce_identity"]) != 3 or not all(g["reduce_identity"]):
+        raise AssertionError(f"data parallel (a): losses {g['losses']} with the group, "
+                             f"{n['losses']} without; launches equal: {g['steps'] == n['steps']}"
+                             f"; the all-reduce left the gradient as it was: "
+                             f"{g['reduce_identity']}")
+    n_params = sum(v.numel() for v in g["params"].values())
+    later = max(abs(a - b) / abs(b) for a, b in zip(g["losses"][k:], n["losses"][k:]))
+    differ = [key for key, v in g["params"].items() if not torch.equal(v, n["params"][key])]
+    worst = max(((g["params"][key] - n["params"][key]).abs().max().item() for key in differ),
+                default=0.0)
+    med = {tag: {f: statistics.median(s for w, s in r["micro"] if w == f)
+                 for f in (False, True)} for tag, r in runs.items()}
+    print(f"[dp-a] world size 1 over {'NCCL' if dev.type == 'cuda' else 'gloo'}: 6 micro-steps, "
+          f"launches per step equal, the first optimizer step's {k} losses bit for bit those "
+          f"without a group, and each gradient all-reduce left the gradient bit for bit; "
+          f"after the first update (the backward is not bit-reproducible on the card, with or "
+          f"without a group) the largest loss difference {later:.3e} (relative) and "
+          f"{len(differ)} of {len(g['params'])} parameter tensors differ, by at most "
+          f"{worst:.3e}; gradient all-reduce of the {n_params:,} parameters per optimizer "
+          f"step (s) {' '.join(f'{x:.5f}' for x in g['all_reduce_s'])}; median s per "
+          f"micro-step coarse / fine with the group {med['group'][False]:.4f} / "
+          f"{med['group'][True]:.4f}, without {med['none'][False]:.4f} / "
+          f"{med['none'][True]:.4f}")
+    ckpts = os.path.join(tmp, "w1_group", "ckpts")
+    del runs, n
+
+    # (b), (c) and (d) at once: the CLI under torchrun, the two ranks, and
+    # this process's references
+    t0 = time.perf_counter()
+    cli_dir = os.path.join(tmp, "cli")
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=1",
+         "-m", "lara_tpu_torch.train", DP_CONFIG, f"train_dataset.data_root={store}",
+         f"test_dataset.data_root={store}", f"logger.dir={cli_dir}", *DP_OVERRIDES, *DP_B,
+         f"--device={dev.type}"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    ranks = torch.multiprocessing.spawn(dp_rank, args=(tmp, store, ckpts, str(dev)),
+                                        nprocs=2, join=False)
+    try:
+        torch.cuda.empty_cache()
+        one = dp_train(dev, dp_config(store, os.path.join(tmp, "dp1"), *DP_C), f32=True)
+        del one["trainer"]
+        with per_scene_forward():
+            split = dp_train(dev, dp_config(store, os.path.join(tmp, "dp1s"), *DP_C), f32=True)
+        del split["trainer"]
+        want_eval, _ = dp_evaluate(dev, store, ckpts, os.path.join(tmp, "eval1"), 1)
+        while not ranks.join(timeout=1):
+            if time.perf_counter() - t0 > 600:
+                raise TimeoutError("data parallel (c): the ranks did not finish in 600 s")
+        cli_out, _ = cli.communicate(timeout=max(1.0, 600 - (time.perf_counter() - t0)))
+    finally:
+        for proc in ranks.processes:
+            if proc.is_alive():
+                proc.kill()
+        if cli.poll() is None:
+            cli.kill()
+            cli.wait()
+    together_s = time.perf_counter() - t0
+
+    # (b)
+    from lara_tpu_torch.train.checkpoint import latest_step
+
+    step = latest_step(os.path.join(cli_dir, "ckpts"))
+    scalars = os.path.join(cli_dir, "scalars.jsonl")
+    if cli.returncode != 0 or step != 2 or not os.path.getsize(scalars):
+        raise AssertionError(f"data parallel (b): torchrun exited {cli.returncode}, "
+                             f"checkpoint step {step}:\n{cli_out[-3000:]}")
+    print(f"[dp-b] torchrun --nproc_per_node=1 -m lara_tpu_torch.train: exit 0, "
+          f"2 micro-steps, scalars.jsonl and the checkpoint of step {step}")
+
+    # (c)
+    r0, r1 = (torch.load(os.path.join(tmp, f"dp_rank{r}.pt"), weights_only=False)
+              for r in (0, 1))
+    grads = torch.load(os.path.join(tmp, "dp2_grads.pt"), weights_only=True)
+    names = one["names"]
+    loss_err = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(r0["losses"], one["losses"]))
+    grad_err = {k: rel_l2(a, b) for k, a, b in zip(names, grads, split["grads"])}
+    batch_err = {k: rel_l2(a, b) for k, a, b in zip(names, grads, one["grads"])}
+    worst, worst_b = max(grad_err, key=grad_err.get), max(batch_err, key=batch_err.get)
+    problems = []
+    if len(r0["losses"]) != 4 or r0["losses"] != r1["losses"] or loss_err > DP_LOSS_RTOL:
+        problems.append(f"losses {r0['losses']} / {r1['losses']} against {one['losses']}")
+    if grad_err[worst] > DP_SPLIT_RTOL or batch_err[worst_b] > TRAIN_GRAD_RTOL:
+        problems.append(f"gradient of {worst}: relative L2 {grad_err[worst]:.3e} against one "
+                        f"process forwarding one scene at a time; of {worst_b}: "
+                        f"{batch_err[worst_b]:.3e} against one process at batch 2")
+    if len(r0["digests"]) != 2 or r0["digests"] != r1["digests"]:
+        problems.append(f"parameter digests {r0['digests']} / {r1['digests']}")
+    if (r0["writes"], r0["loggers"], r1["writes"], r1["loggers"]) != (1, 1, 0, 0):
+        problems.append(f"files: rank 0 {r0['writes']} checkpoint(s), {r0['loggers']} "
+                        f"logger(s); rank 1 {r1['writes']}, {r1['loggers']}")
+    if r0["n_sel"] != r1["n_sel"]:
+        problems.append(f"views {r0['n_sel']} / {r1['n_sel']}")
+    if dev.type == "cuda" and not all(r["launches"]["blend_fwd_stash"] and
+                                      r["launches"]["blend_bwd"] for r in (r0, r1)):
+        problems.append(f"launches {r0['launches']} / {r1['launches']}")
+    # (d)
+    m0, m1 = r0["metrics"], r1["metrics"]
+    eval_err = max(np.max(np.abs(np.subtract(m0[k], want_eval[k]))) for k in ("psnr", "ssim"))
+    if m0 != m1 or m0["scenes"] != want_eval["scenes"] or len(m0["scenes"]) != 4 \
+            or eval_err > DP_EVAL_ATOL:
+        problems.append(f"evaluate: {m0['scenes']} psnr {m0['psnr']} ssim {m0['ssim']} against "
+                        f"{want_eval['scenes']} {want_eval['psnr']} {want_eval['ssim']}")
+    if problems:
+        raise AssertionError("data parallel (c)/(d): " + "; ".join(problems))
+    print(f"[dp-c] 2 ranks on one card over gloo, global batch 2 at grad_accum 2: 4 micro-steps, "
+          f"largest loss difference {loss_err:.3e} (relative) against one process at batch 2; "
+          f"first optimizer step's gradient against one process forwarding one scene at a "
+          f"time: largest relative L2 {grad_err[worst]:.3e} ({worst}), median over the "
+          f"parameters {statistics.median(grad_err.values()):.3e}; against one process at "
+          f"batch 2: {batch_err[worst_b]:.3e} ({worst_b}), median "
+          f"{statistics.median(batch_err.values()):.3e}; parameters equal bit for bit after "
+          f"both optimizer steps, rank 0 alone wrote; views {r0['n_sel']}; gloo all-reduce "
+          f"(s) {' '.join(f'{x:.3f}' for x in r0['all_reduce_s'])} (a correctness check, "
+          f"not a speed)")
+    print(f"[dp-d] evaluate on 2 ranks at batch size 2 against 1 process at batch size 1: "
+          f"scenes {m0['scenes']}, largest PSNR / SSIM difference {eval_err:.3e}")
+    print(f"[dp] (b)-(d) together {together_s:.2f} s; phase {time.perf_counter() - t_phase:.2f} s")
+    total = {k: g["launches"][k] + sum(r["launches"][k] + r["eval_launches"][k]
+                                       for r in (r0, r1)) for k in g["launches"]}
+    return {"launches": total, "all_reduce_s": g["all_reduce_s"], "micro_s": med}
+
+
 def kernel_records(kernel, backward, flash_res, serving, binning, train, train_knobs,
-                   evaluation, infer) -> list:
+                   evaluation, infer, dp) -> list:
     """The kernels line: each kernel's launches on its paths (the blend
-    forward's on the serving and evaluate paths, the flash forward's on the
-    flash training and evaluate paths), its largest error against the plain
+    forward's on the serving, evaluate and data-parallel paths, the stash
+    forward's and backward's on the flagship and data-parallel training
+    paths, the flash forward's on the flash training and evaluate paths), its largest error against the plain
     version, its time beside the plain version's, the library call's (flash)
     and its bound, at the path's shapes."""
     bwd, fl, win = backward["train"], flash_res["train"], binning["train"]
@@ -1814,14 +2204,15 @@ def kernel_records(kernel, backward, flash_res, serving, binning, train, train_k
     return [
         rec("blend_fwd", "blend_fwd.cu", pallas + ":398",
             serving["launches"]["blend_fwd"] + evaluation["launches"]["blend_fwd"]
-            + infer["launches"]["blend_fwd"],
+            + infer["launches"]["blend_fwd"] + dp["launches"]["blend_fwd"],
             max(r["max_abs_err"] for r in kernel.values()), kernel["eval"]["ms"],
             kernel["eval"]["plain_ms"], (kernel["eval"]["bound_ms"], kernel["eval"]["bound_by"])),
         rec("blend_fwd_stash", "blend_fwd.cu", pallas + ":398",
-            train["launches"]["blend_fwd_stash"],
+            train["launches"]["blend_fwd_stash"] + dp["launches"]["blend_fwd_stash"],
             max(r["fwd_max_abs_err"] for r in backward.values()), bwd["fwd_stash_ms"],
             bwd["fwd_stash_plain_ms"], bwd["fwd_stash_bound"]),
-        rec("blend_bwd", "blend_bwd.cu", pallas + ":457", train["launches"]["blend_bwd"],
+        rec("blend_bwd", "blend_bwd.cu", pallas + ":457",
+            train["launches"]["blend_bwd"] + dp["launches"]["blend_bwd"],
             max(r["max_abs_err"] for r in backward.values()), bwd["bwd_ms"],
             bwd["bwd_plain_ms"], bwd["bwd_bound"]),
         rec("blend_bwd_replay", "blend_bwd.cu", pallas + ":432",
@@ -1853,12 +2244,7 @@ def main() -> int:
     print(smi)
     print(f"[device] {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
-    # float32 everywhere it is asked for: no TF32 in matmuls or cuDNN
-    # convolutions (MS-SSIM's blur), deterministic cuDNN
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
+    float32_everywhere()
 
     start = time.perf_counter()
 
@@ -1899,6 +2285,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         evaluation = phase("evaluate (checkpoint at 256², then serving at 512²)",
                            evaluate_phase, dev, tmp, trainer)
+        torch.cuda.empty_cache()
+        dp = phase("data parallel (world size 1, torchrun, 2 ranks, evaluate)", dp_phase,
+                   dev, tmp, trainer["store"])
     print("[evaluate] launches on the evaluate paths: "
           + json.dumps({k: v for k, v in evaluation["launches"].items() if v}))
     torch.cuda.empty_cache()
@@ -1908,8 +2297,10 @@ def main() -> int:
     print("[infer] launches on the infer-dataset paths: "
           + json.dumps({k: v for k, v in infer["launches"].items() if v}))
 
+    print("[dp] launches on the data-parallel paths: "
+          + json.dumps({k: v for k, v in dp["launches"].items() if v}))
     records = kernel_records(kernel, backward, flash_res, serving, binning, train, train_knobs,
-                             evaluation, infer)
+                             evaluation, infer, dp)
     for r in records:
         if r["launches"] <= 0:
             raise AssertionError(f"{r['name']} was not launched on its path")

@@ -135,6 +135,12 @@ class GObjaverseDataset:
                    for i in range(len(view_id))]
         return view_id, bgs
 
+    def skip(self, index: int) -> None:
+        """Draw sample `index`'s augmentation without loading it, so the
+        generator is where loading it would leave it (a data-parallel rank
+        passing over another rank's sample, `data/loader.py`)."""
+        self._draw(str(self.scenes_name[index]))
+
     def __getitem__(self, index: int) -> dict:
         scene = str(self.scenes_name[index])
         view_id, bg_colors = self._draw(scene)

@@ -7,6 +7,13 @@ Worker threads decode whole batches (NumPy releases the GIL in its array
 work) into a bounded queue that the consumer drains in batch order; the
 epoch's shuffle is `np.random.default_rng((seed, epoch))`, as in the JAX
 package, so both packages visit the scenes in one order.
+
+Under data parallelism every rank draws the same order of global batches
+and collates only its own slice of each (`parallel/mesh.py:rank_slice`),
+as the JAX package shards a global batch over dp; a dataset whose samples
+are random (the training split's views and backgrounds) draws for the
+other ranks' samples too (`skip`), so that with one worker thread each
+rank's samples are bit for bit those of one process.
 """
 
 from __future__ import annotations
@@ -18,10 +25,15 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
+from lara_tpu_torch.parallel.mesh import check_divides, rank_slice
+
 
 def collate(samples: list) -> dict:
     """Stack a list of per-scene dicts into batch arrays; `meta` entries are
-    collected into a list (the reference keeps them as Python values)."""
+    collected into a list (the reference keeps them as Python values). No
+    samples make `{"meta": []}`."""
+    if not samples:
+        return {"meta": []}
     out = {}
     for k in samples[0]:
         if k == "meta":
@@ -32,13 +44,19 @@ def collate(samples: list) -> dict:
 
 
 class DataLoader:
-    """Batches of `batch_size` scenes (the last, partial batch is dropped
-    unless `drop_last` is False), collated by `num_workers` threads (0: in
-    the consumer) at most `prefetch` batches ahead."""
+    """Global batches of `batch_size` scenes (the last, partial batch is
+    dropped unless `drop_last` is False), collated by `num_workers` threads
+    (0: in the consumer) at most `prefetch` batches ahead. With
+    `world_size` > 1 each batch is rank `rank`'s contiguous slice of the
+    global batch (`batch_size` must divide by `world_size`); `len()`, the
+    order and `drop_last` stay the global batch's. A last partial batch
+    that does not divide goes to rank 0 alone (an empty batch elsewhere),
+    as evaluation takes such a batch on one device."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  num_workers: int = 4, seed: int = 0, drop_last: bool = True,
-                 prefetch: int = 4):
+                 prefetch: int = 4, rank: int = 0, world_size: int = 1):
+        check_divides(batch_size, world_size, "batch_size")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -46,6 +64,7 @@ class DataLoader:
         self.seed = seed
         self.drop_last = drop_last
         self.prefetch = prefetch
+        self.rank, self.world_size = rank, world_size
         self._epoch = 0
 
     def __len__(self):
@@ -62,10 +81,28 @@ class DataLoader:
         for b in range(len(self)):
             yield idx[b * self.batch_size: (b + 1) * self.batch_size]
 
+    def _load(self, ids) -> dict:
+        """This rank's samples of the global batch `ids`, collated. The
+        others' are passed over in their order with the dataset's `skip`
+        (where it has one), which draws their augmentation, so each sample
+        is what one process would load."""
+        if len(ids) % self.world_size:
+            mine = range(len(ids)) if self.rank == 0 else range(0)
+        else:
+            mine = range(len(ids))[rank_slice(len(ids), self.rank, self.world_size)]
+        skip = getattr(self.dataset, "skip", None)
+        samples = []
+        for k, i in enumerate(ids):
+            if k in mine:
+                samples.append(self.dataset[int(i)])
+            elif skip is not None:
+                skip(int(i))
+        return collate(samples)
+
     def __iter__(self) -> Iterator[dict]:
         if self.num_workers == 0:
             for ids in self._batch_indices():
-                yield collate([self.dataset[int(i)] for i in ids])
+                yield self._load(ids)
             return
 
         batches = list(self._batch_indices())
@@ -95,7 +132,7 @@ class DataLoader:
                         return
                     cursor[0] += 1
                 try:
-                    batch = collate([self.dataset[int(j)] for j in batches[i]])
+                    batch = self._load(batches[i])
                 except Exception as e:  # raised again in the consumer
                     put_with_backpressure((i, None, e))
                     return

@@ -16,12 +16,21 @@ for the first 100 scenes; the orbit video (`infer.video_frames` > 0) and
 the TSDF mesh `<scene>.obj` (`infer.save_mesh`). The metrics go to
 `<metric_path>/<dataset_name>.json` with the keys of `evaluate.py`.
 
+Distributed evaluation (`python -m torch.distributed.run
+--nproc_per_node=N -m lara_tpu_torch.evaluate ...`, or a process group the
+caller made), as `evaluate.py:63-85` shards scenes over devices: with
+`infer_dataset.batch_size` B, n_dp is the largest divisor of B up to the
+world size, and rank r < n_dp takes scenes [r·B/n_dp, (r+1)·B/n_dp) of
+each batch whose scene count divides by n_dp (rank 0 all of one that does
+not); ranks from n_dp on take none. Each rank writes the panels, videos and
+meshes of its scenes (the panel rule counts the scene's place in the whole
+evaluation); rank 0 gathers every scene's metrics in scene order and
+writes the JSON, the one-process JSON, which every rank returns.
+
 What differs from `evaluate.py`: panels are PNG, not JPEG, and the video is
-PNG frames where OpenCV is absent (no GIF); scenes are not sharded over
-devices (one process, one device: the JAX package takes the same branch
-on one device); without `infer.ckpt_path` the weights are the port's
-seeded init (`LaRaNet`'s generator, seed 0), not the JAX package's
-`PRNGKey(0)` init.
+PNG frames where OpenCV is absent (no GIF); without `infer.ckpt_path` the
+weights are the port's seeded init (`LaRaNet`'s generator, seed 0), not
+the JAX package's `PRNGKey(0)` init.
 """
 
 from __future__ import annotations
@@ -44,6 +53,8 @@ from lara_tpu_torch.eval.metrics import abs_error, acc_threshold, psnr, ssim
 from lara_tpu_torch.eval.render_artifacts import extract_mesh, render_video
 from lara_tpu_torch.eval.vis import write_png
 from lara_tpu_torch.models import LaRaNet
+from lara_tpu_torch.parallel.distributed import (gather_objects, is_main, process_group, rank,
+                                                 resolve_device, world_size)
 from lara_tpu_torch.train.__main__ import split_device
 from lara_tpu_torch.train.checkpoint import restore_params
 from lara_tpu_torch.train.step import make_forward
@@ -53,23 +64,35 @@ CONFIGS = Path(__file__).resolve().parents[1] / "configs"
 
 def main(argv: Optional[List[str]] = None, dtype: torch.dtype = torch.bfloat16) -> dict:
     """Evaluate as the command line asks; returns the metrics dict that is
-    written to the JSON. `dtype` is the network's autocast type."""
+    written to the JSON (on every rank). `dtype` is the network's autocast
+    type."""
     rest, device = split_device(list(sys.argv[1:] if argv is None else argv))
-    device = torch.device(device or "cuda")
+    device = resolve_device(device or "cuda")
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("lara_tpu_torch.evaluate runs on the CUDA device, and none is "
                            "available; pass --device cpu to evaluate on the CPU")
     paths, overrides = parse_cli(rest)
     cfg = load_config(str(CONFIGS / "base.yaml"), str(CONFIGS / "infer.yaml"), *paths,
                       overrides=overrides)
+    with process_group(device):
+        return _evaluate(cfg, device, dtype)
 
+
+def _evaluate(cfg, device: torch.device, dtype: torch.dtype) -> dict:
     ds_cfg = cfg.infer_dataset
-    loader = DataLoader(get_dataset(ds_cfg.dataset_name)(ds_cfg), ds_cfg.batch_size,
-                        shuffle=False, num_workers=ds_cfg.num_workers, drop_last=False)
+    bs = ds_cfg.batch_size
+    # scenes are independent: a batch of B scenes is split over n_dp ranks,
+    # the largest divisor of B up to the world size (evaluate.py:63-72)
+    n_dp = max(d for d in range(1, world_size() + 1) if bs % d == 0)
+    r = rank()
+    dataset = get_dataset(ds_cfg.dataset_name)(ds_cfg)
     net = LaRaNet(cfg, dtype=dtype, device=device)
     if cfg.infer.ckpt_path:
         net.load_state_dict(restore_params(cfg.infer.ckpt_path), strict=True)
-        print(f"restored params from {cfg.infer.ckpt_path}")
+        if is_main():
+            print(f"restored params from {cfg.infer.ckpt_path}")
+    if n_dp > 1 and is_main():
+        print(f"evaluating with dp={n_dp} over {n_dp} ranks")
 
     lpips_vgg_fn = _try_load_lpips("vgg", cfg.infer.require_lpips, device)
     lpips_alex_fn = _try_load_lpips("alex", cfg.infer.require_lpips, device)
@@ -80,17 +103,24 @@ def main(argv: Optional[List[str]] = None, dtype: torch.dtype = torch.bfloat16) 
     os.makedirs(cfg.infer.save_folder, exist_ok=True)
     os.makedirs(cfg.infer.metric_path, exist_ok=True)
     n_view = cfg.n_views
-    names, psnrs, ssims, depth_accs = [], [], [], []
-    lpips_vggs, lpips_alexs = [], []
+    rows = []      # one per scene of this rank: its global index, name, metrics
+    loader = DataLoader(dataset, bs, shuffle=False, num_workers=ds_cfg.num_workers,
+                        drop_last=False, rank=r, world_size=n_dp) if r < n_dp else []
 
-    for batch in loader:
+    for i, batch in enumerate(loader):
+        n_scenes = len(batch["meta"])
+        if not n_scenes:        # a last batch that does not divide: rank 0's
+            continue
+        # the batch's first scene in the evaluation order
+        n_global = min(bs, len(dataset) - i * bs)
+        first = i * bs + (r * n_global // n_dp if n_global % n_dp == 0 else 0)
         out = fwd(to_device(batch, device))
         img_key = "image_fine" if "image_fine" in out else "image"
         dep_key = "depth_fine" if "depth_fine" in out else "depth"
-        n_scenes = int(batch["tar_rgb"].shape[0])
 
         for j in range(n_scenes):
             name = str(batch["meta"][j]["scene"]).split(".")[0]
+            row = {"index": first + j, "name": name}
             pred = out[img_key][j].float().cpu().numpy()          # [N, H, W, 3]
             gt = np.asarray(batch["tar_rgb"][j])
 
@@ -101,19 +131,19 @@ def main(argv: Optional[List[str]] = None, dtype: torch.dtype = torch.bfloat16) 
                 # single SSIM and a single LPIPS call (evaluation.py:75-95)
                 mosaic_p = np.concatenate(list(pred_m), axis=1)
                 mosaic_g = np.concatenate(list(gt_m), axis=1)
-                psnrs.append(psnr(mosaic_p, mosaic_g))
-                ssims.append(ssim(mosaic_p, mosaic_g, device=device))
+                row["psnr"] = psnr(mosaic_p, mosaic_g)
+                row["ssim"] = ssim(mosaic_p, mosaic_g, device=device)
                 if lpips_vgg_fn is not None:
-                    lpips_vggs.append(lpips_vgg_fn(mosaic_g, mosaic_p))
+                    row["lpips_vgg"] = lpips_vgg_fn(mosaic_g, mosaic_p)
                 if lpips_alex_fn is not None:
-                    lpips_alexs.append(lpips_alex_fn(mosaic_g, mosaic_p))
+                    row["lpips_alex"] = lpips_alex_fn(mosaic_g, mosaic_p)
 
             if len(cfg.infer.eval_depth) and "tar_dep" in batch:
-                depth_accs.append(depth_metrics(
+                row["depth"] = depth_metrics(
                     out[dep_key][j, ..., 0].float().cpu().numpy(), batch["tar_dep"][j],
-                    batch["tar_msk"][j], cfg.infer.eval_depth))
+                    batch["tar_msk"][j], cfg.infer.eval_depth)
 
-            if len(names) < 100:
+            if row["index"] < 100:
                 _save_panel(os.path.join(cfg.infer.save_folder, f"{name}.png"), gt, pred)
 
             if artifacts:
@@ -128,11 +158,20 @@ def main(argv: Optional[List[str]] = None, dtype: torch.dtype = torch.bfloat16) 
                     extract_mesh(os.path.join(cfg.infer.save_folder, f"{name}.obj"),
                                  gauss, cfg, tm)
 
-            names.append(name)
-            print(f"[{len(names)}/{len(loader) * n_scenes}] {name} "
-                  f"psnr={psnrs[-1] if psnrs else float('nan'):.2f}")
+            rows.append(row)
+            print(f"[{row['index'] + 1}/{len(dataset)}] {name} "
+                  f"psnr={row.get('psnr', float('nan')):.2f}")
         del out
 
+    rows = sorted((row for part in gather_objects(rows) for row in part),
+                  key=lambda row: row["index"])
+
+    def column(key):
+        return [row[key] for row in rows if key in row]
+
+    names, psnrs, ssims = column("name"), column("psnr"), column("ssim")
+    lpips_vggs, lpips_alexs, depth_accs = column("lpips_vgg"), column("lpips_alex"), \
+        column("depth")
     metrics = {
         "scenes": names,
         "psnr": psnrs, "ssim": ssims,
@@ -144,12 +183,13 @@ def main(argv: Optional[List[str]] = None, dtype: torch.dtype = torch.bfloat16) 
         "mean_lpips_alex": float(np.mean(lpips_alexs)) if lpips_alexs else None,
         "mean_depth": np.mean(depth_accs, axis=0).tolist() if depth_accs else None,
     }
-    out_path = os.path.join(cfg.infer.metric_path, f"{ds_cfg.dataset_name}.json")
-    with open(out_path, "w") as f:
-        json.dump(metrics, f, indent=2)
-    print(f"metrics -> {out_path}")
-    if metrics["mean_psnr"] is not None:
-        print(f"mean PSNR {metrics['mean_psnr']:.3f}  mean SSIM {metrics['mean_ssim']:.4f}")
+    if is_main():
+        out_path = os.path.join(cfg.infer.metric_path, f"{ds_cfg.dataset_name}.json")
+        with open(out_path, "w") as f:
+            json.dump(metrics, f, indent=2)
+        print(f"metrics -> {out_path}")
+        if metrics["mean_psnr"] is not None:
+            print(f"mean PSNR {metrics['mean_psnr']:.3f}  mean SSIM {metrics['mean_ssim']:.4f}")
     return metrics
 
 

@@ -11,12 +11,20 @@ island, lightning/loss.py:44). The blur is a depthwise convolution (one
 TF32 unless `torch.backends.cudnn.allow_tf32` is False, so a caller that
 wants float32 sets that flag (`chip_smoke.py` does). The JAX package's
 banded matmuls are a TPU workaround (its `_blur`) and are not ported.
+
+Under data parallelism `ms_ssim` is the global batch's: each scale's means
+of `cs` and `ssim_map` are `parallel/mesh.py:global_mean`s, so every rank
+holds the MS-SSIM of the whole batch (a product of powers of means, which
+per-rank values averaged would not give). Without a process group they are
+`torch.mean`. `ssim` (evaluation's per-scene metric) stays local.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from lara_tpu_torch.parallel.mesh import global_mean
 
 _MSSSIM_WEIGHTS = (0.0448, 0.2856, 0.3001, 0.2363, 0.1333)
 
@@ -60,18 +68,19 @@ def ssim(x: torch.Tensor, y: torch.Tensor, data_range: float = 1.0,
 def ms_ssim(x: torch.Tensor, y: torch.Tensor, data_range: float = 1.0,
             win_size: int = 11, win_sigma: float = 1.5,
             weights=_MSSSIM_WEIGHTS) -> torch.Tensor:
-    """Mean multi-scale SSIM. x, y: [N, C, H, W]; H, W must stay > win_size
-    across all scales (≥ 176 px for the default 5 scales)."""
+    """Mean multi-scale SSIM over the global batch. x, y: [N, C, H, W]
+    (this rank's slice); H, W must stay > win_size across all scales
+    (≥ 176 px for the default 5 scales)."""
     x, y = x.float(), y.float()
     win = _gaussian_kernel(win_size, win_sigma, x.device)
     vals = []
     for i in range(len(weights)):
         ssim_map, cs = _ssim_components(x, y, win, data_range)
         if i < len(weights) - 1:
-            vals.append(torch.relu(torch.mean(cs)))
+            vals.append(torch.relu(global_mean(cs)))
             x, y = F.avg_pool2d(x, 2), F.avg_pool2d(y, 2)
         else:
-            vals.append(torch.relu(torch.mean(ssim_map)))
+            vals.append(torch.relu(global_mean(ssim_map)))
     vals = torch.stack(vals)
     w = torch.tensor(weights, dtype=torch.float32, device=vals.device)
     # d(v^w)/dv → inf at v=0; clamp (only bites on pathological inputs)

@@ -6,6 +6,13 @@ Configs merge left to right on top of `configs/base.yaml`; trailing
 key=value pairs are dotlist overrides (train_lightning.py:96-103). The run
 is on the CUDA device (`--device cuda`, the default) and raises without
 one; `--device cpu` runs it on the CPU with the kernels' plain versions.
+
+Data parallelism, one process per GPU:
+
+    python -m torch.distributed.run --nproc_per_node=N -m lara_tpu_torch.train cfg.yaml ...
+
+Each process trains on `cuda:LOCAL_RANK` over NCCL (`--device cpu`: gloo)
+on its slice of every global batch (`train/loop.py`).
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ from typing import List, Optional
 import torch
 
 from lara_tpu_torch.config import load_config, parse_cli
+from lara_tpu_torch.parallel.distributed import is_main, process_group
 from lara_tpu_torch.train.loop import Trainer
 
 BASE_CONFIG = Path(__file__).resolve().parents[2] / "configs" / "base.yaml"
@@ -40,7 +48,8 @@ def split_device(argv: List[str]):
 
 def main(argv: Optional[List[str]] = None, device: Optional[str] = None) -> Trainer:
     """Train as the command line asks; `device` (when given) overrides
-    `--device`. Returns the Trainer after its fit."""
+    `--device`. Returns the Trainer after its fit. A process group that
+    the run made from a launcher's environment is destroyed at its end."""
     rest, flag = split_device(list(sys.argv[1:] if argv is None else argv))
     device = device or flag or "cuda"
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
@@ -50,11 +59,13 @@ def main(argv: Optional[List[str]] = None, device: Optional[str] = None) -> Trai
     cfg = load_config(str(BASE_CONFIG), *paths, overrides=overrides)
     if cfg.train.detect_anomaly:
         torch.autograd.set_detect_anomaly(True)   # train_lightning.py:30
-    trainer = Trainer(cfg, device=device)
-    t0 = time.time()
-    stats = trainer.fit()
-    dt = time.time() - t0
-    print(f"training finished in {dt / 3600:.2f} h; final stats: {stats}")
+    with process_group(device):
+        trainer = Trainer(cfg, device=device)
+        t0 = time.time()
+        stats = trainer.fit()
+        dt = time.time() - t0
+        if is_main():
+            print(f"training finished in {dt / 3600:.2f} h; final stats: {stats}")
     return trainer
 
 

@@ -21,6 +21,16 @@ parameters; the port's parameters exist when the net is built, so it
 skips that batch. Scalars go to `<logger.dir>/scalars.jsonl` and panels to
 `<logger.dir>/panels/*.png` always, and to tensorboardX or wandb
 (`logger.name`) where the package is installed.
+
+Data parallelism (`python -m torch.distributed.run --nproc_per_node=N -m
+lara_tpu_torch.train ...`, or a process group the caller made): one
+process per device, each on its slice of every global batch of
+`train_dataset.batch_size` (and `test_dataset.batch_size`) scenes, which
+must divide by the world size. Every rank draws the same views, holds the
+global batch's loss and stats and, after each optimizer step, the same
+parameters (`parallel/mesh.py`). Rank 0 alone builds the logger and writes
+scalars, panels (of the global batch, gathered) and checkpoints; a SIGTERM
+on any rank stops every rank at the same micro-step.
 """
 
 from __future__ import annotations
@@ -39,9 +49,16 @@ from lara_tpu_torch.config import Config
 from lara_tpu_torch.data import DataLoader, device_prefetch, get_dataset
 from lara_tpu_torch.eval.vis import vis_images, write_png
 from lara_tpu_torch.models import LaRaNet
+from lara_tpu_torch.parallel.distributed import (any_rank, is_main, maybe_initialize_distributed,
+                                                 rank, resolve_device, world_size)
+from lara_tpu_torch.parallel.mesh import check_divides, gather_batch, replicate_state
 from lara_tpu_torch.train import checkpoint as ckpt
 from lara_tpu_torch.train.state import TrainState
 from lara_tpu_torch.train.step import make_eval_step, make_train_step
+
+
+# the outputs `eval/vis.py:vis_images` reads (with "_fine" too)
+VIS_KEYS = ("image", "depth", "rend_normal", "depth_normal")
 
 
 class RunLogger:
@@ -106,7 +123,9 @@ class Trainer:
     `micro_log` holds one record per micro-step (epoch, scenes, with_fine,
     n_sel, seconds), `val_epochs` and `ckpt_epochs` what ran, and
     `loader_wait_s` / `fit_s` the seconds spent waiting on the loader and in
-    the whole fit."""
+    the whole fit. Under a launcher (or in a process group the caller made)
+    the trainer is one rank of a data-parallel run, and a `cuda` device
+    without an index is `cuda:LOCAL_RANK`."""
 
     def __init__(self, cfg: Config, device=None):
         if cfg.train.tp != 1:
@@ -114,7 +133,11 @@ class Trainer:
         self.cfg = cfg
         self.workdir = cfg.logger.dir
         os.makedirs(self.workdir, exist_ok=True)
-        self.device = torch.device("cuda" if device is None else device)
+        self.device = resolve_device(device)
+        maybe_initialize_distributed(self.device)
+        self.rank, self.world = rank(), world_size()
+        check_divides(cfg.train_dataset.batch_size, self.world, "train_dataset.batch_size")
+        check_divides(cfg.test_dataset.batch_size, self.world, "test_dataset.batch_size")
         self.net = LaRaNet(cfg, device=self.device,
                            generator=torch.Generator().manual_seed(cfg.train.seed))
         self._preempted = False
@@ -157,10 +180,12 @@ class Trainer:
         cfg, t = self.cfg, self.cfg.train
         train_ds = get_dataset(cfg.train_dataset.dataset_name)(cfg.train_dataset)
         val_ds = get_dataset(cfg.test_dataset.dataset_name)(cfg.test_dataset)
+        shard = dict(rank=self.rank, world_size=self.world)
         train_loader = DataLoader(train_ds, cfg.train_dataset.batch_size, shuffle=True,
-                                  num_workers=cfg.train_dataset.num_workers, seed=t.seed)
+                                  num_workers=cfg.train_dataset.num_workers, seed=t.seed,
+                                  **shard)
         val_loader = DataLoader(val_ds, cfg.test_dataset.batch_size, shuffle=False,
-                                num_workers=cfg.test_dataset.num_workers)
+                                num_workers=cfg.test_dataset.num_workers, **shard)
         state = TrainState(self.net, t, self._num_opt_steps(train_loader))
         self._maybe_load_encoder()
         self.state = state
@@ -171,8 +196,9 @@ class Trainer:
             ckpt_dir if ckpt.latest_step(ckpt_dir) is not None else None)
         if resume_from:
             start_epoch = ckpt.restore_checkpoint(resume_from, state) + 1
+        replicate_state(state)
 
-        logger = RunLogger(cfg, self.workdir)
+        logger = RunLogger(cfg, self.workdir) if is_main() else None
         previous = self._install_preemption_handler()
         t_fit = time.perf_counter()
         try:
@@ -180,7 +206,8 @@ class Trainer:
                              logger)
         finally:
             self.fit_s = time.perf_counter() - t_fit
-            logger.close()
+            if logger is not None:
+                logger.close()
             if previous is not None:
                 signal.signal(signal.SIGTERM, previous)
 
@@ -255,14 +282,18 @@ class Trainer:
                             last_stats["step_time_p50_s"] = float(np.median(step_times))
                         t_prev = now
                         for k, v in last_stats.items():
-                            logger.add_scalar(f"train/{k}", v, global_step)
+                            if logger is not None:
+                                logger.add_scalar(f"train/{k}", v, global_step)
                     if t.vis_every_n_steps and global_step > 0 and \
                             micro % (t.vis_every_n_steps * t.grad_accum) == 0:
                         out, _ = eval_steps[with_fine](sb, global_step)
                         self._log_panels(logger, out, batch, global_step, "train")
-                    if self._preempted:
+                    # every rank leaves at the same micro-step, or one would
+                    # wait in the next collective for ever
+                    if any_rank(self._preempted, self.device):
                         self._save(ckpt_dir, state, epoch)
-                        print(f"[preempt] checkpoint saved at step {state.step}")
+                        if is_main():
+                            print(f"[preempt] checkpoint saved at step {state.step}")
                         return last_stats
             finally:
                 batches.close()
@@ -301,14 +332,20 @@ class Trainer:
         finally:
             batches.close()
         for k, vs in agg.items():
-            logger.add_scalar(f"val/{k}", float(np.mean(vs)), epoch)
+            if logger is not None:
+                logger.add_scalar(f"val/{k}", float(np.mean(vs)), epoch)
         self.val_epochs.append(epoch)
 
     @staticmethod
     def _log_panels(logger, out, batch, step: int, prefix: str) -> None:
-        host_out = {k: v.detach().float().cpu().numpy() for k, v in out.items()
-                    if isinstance(v, torch.Tensor)}
-        host_batch = {"tar_rgb": batch["tar_rgb"].float().cpu().numpy()}
+        """The panels of the global batch (every rank's slice, gathered: a
+        collective, so every rank calls it), written where `logger` is not
+        None (rank 0)."""
+        host_out = {k: gather_batch(v).float().cpu().numpy() for k, v in out.items()
+                    if isinstance(v, torch.Tensor) and k.startswith(VIS_KEYS)}
+        host_batch = {"tar_rgb": gather_batch(batch["tar_rgb"]).float().cpu().numpy()}
+        if logger is None:
+            return
         for key, value in vis_images(host_out, host_batch).items():
             b, h, w = value.shape[:3]
             logger.add_image(f"{prefix}/{key}", np.clip(value.reshape(b * h, w, 3), 0, 1),

@@ -8,6 +8,12 @@ loss = MSE + 0.5·(1 − MS-SSIM)                  (coarse and fine heads)
 `step` counts optimizer steps (the reference's global_step). The gates are
 multiplications by 0 or 1, as in the JAX package, so every term is
 computed at every step. MS-SSIM runs in float32 (`ops/msssim.py`).
+
+Every batch mean is the global batch's (`parallel/mesh.py:global_mean`):
+under data parallelism each rank holds its slice of the batch, and the
+loss and the stats, PSNR from the global MSE included, are those of the
+whole batch on every rank, as in the JAX package whatever its mesh. Without
+a process group they are the one-process means.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from typing import Dict, Tuple
 import torch
 
 from lara_tpu_torch.ops.msssim import _MSSSIM_WEIGHTS, ms_ssim
+from lara_tpu_torch.parallel.mesh import global_mean
 
 
 def _num_scales(h: int, w: int, win: int = 11) -> int:
@@ -27,8 +34,8 @@ def _num_scales(h: int, w: int, win: int = 11) -> int:
 
 
 def compute_losses(batch: Dict, output: Dict, step) -> Tuple[torch.Tensor, Dict]:
-    """batch/output follow the [B, N, H, W, ...] layout of LaRaNet.
-    Returns (scalar loss, stats dict of scalar tensors) with the stats keys
+    """batch/output follow the [B, N, H, W, ...] layout of LaRaNet (B:
+    this rank's slice of the global batch). Returns (scalar loss, stats dict of scalar tensors) with the stats keys
     of the JAX package."""
     tar = batch["tar_rgb"].float()
     B, N, H, W, _ = tar.shape
@@ -43,7 +50,7 @@ def compute_losses(batch: Dict, output: Dict, step) -> Tuple[torch.Tensor, Dict]
         if f"image{prex}" not in output:
             continue
         img = output[f"image{prex}"].float()
-        mse = torch.mean((img - tar) ** 2)
+        mse = global_mean((img - tar) ** 2)
         loss = loss + mse
         stats[f"mse{prex}"] = mse
         stats[f"psnr{prex}"] = -10.0 * torch.log(mse) / math.log(10.0)
@@ -57,14 +64,14 @@ def compute_losses(batch: Dict, output: Dict, step) -> Tuple[torch.Tensor, Dict]
         loss = loss + 0.5 * (1.0 - ssim_val)
 
         if f"rend_dist{prex}" in output and prex != "_fine":
-            distortion = torch.mean(output[f"rend_dist{prex}"].float())
+            distortion = global_mean(output[f"rend_dist{prex}"].float())
             stats[f"distortion{prex}"] = distortion
             loss = loss + gate * distortion * 1000.0
 
             rend_normal = output[f"rend_normal{prex}"].float()
             depth_normal = output[f"depth_normal{prex}"].float()
             acc = output[f"acc_map{prex}"].float().detach()
-            normal_err = torch.mean(
+            normal_err = global_mean(
                 (1.0 - torch.sum(rend_normal * depth_normal, dim=-1)) * acc)
             stats[f"normal{prex}"] = normal_err
             loss = loss + gate * normal_err * 0.2

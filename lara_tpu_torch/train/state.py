@@ -13,7 +13,12 @@ lightning/utils.py:89-107, train_lightning.py:73-74):
     (`torch.nn.utils.clip_grad_norm_` divides by ‖g‖ + 1e-6 instead);
   - `grad_accum` micro-steps per optimizer step, as optax.MultiSteps: the
     gradients of the micro-steps are summed in `.grad` and their mean is
-    applied on the last one; parameters do not change on the others.
+    applied on the last one; parameters do not change on the others;
+  - under data parallelism the accumulated gradients are summed over the
+    ranks once per optimizer step, on that last micro-step, before the
+    1/grad_accum scale and the clip (`parallel/mesh.py`: each rank's
+    gradient is its slice's part of the global loss's), so every rank
+    clips the same norm and holds the same parameters after the update.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import torch
 import torch.nn as nn
 
 from lara_tpu_torch.config import TrainConfig
+from lara_tpu_torch.parallel.mesh import all_reduce_grads_
 
 
 def decay_mask(net: nn.Module) -> Dict[str, bool]:
@@ -94,6 +100,7 @@ class TrainState:
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        all_reduce_grads_(self.params)
         grads = [p.grad for p in self.params]
         if k > 1:
             torch._foreach_mul_(grads, 1.0 / k)

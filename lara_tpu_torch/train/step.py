@@ -4,8 +4,12 @@
 `with_fine` selects the coarse-only or the fine step, as the JAX training loop
 switches at `train.start_fine`. The loss gates read the optimizer-step
 count `state.step // grad_accum` (the reference's global_step), as
-`lara_tpu/train/step.py:46` does. One process, one device: data
-parallelism is not ported yet.
+`lara_tpu/train/step.py:46` does.
+
+Under data parallelism each rank calls the step on its slice of the global
+batch; the loss and the stats a step returns are the global batch's
+(`train/loss.py`), and the gradients are summed over the ranks once per
+optimizer step (`train/state.py`).
 """
 
 from __future__ import annotations

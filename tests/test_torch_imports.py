@@ -55,7 +55,8 @@ def test_every_module_imports(probe):
                 "lara_tpu_torch.data.image_io", "lara_tpu_torch.data.kmeans",
                 "lara_tpu_torch.data.gso", "lara_tpu_torch.data.instant3d",
                 "lara_tpu_torch.data.mipnerf", "lara_tpu_torch.models.convert",
-                "lara_tpu_torch.tools.convert_checkpoint"}
+                "lara_tpu_torch.tools.convert_checkpoint",
+                "lara_tpu_torch.parallel.distributed", "lara_tpu_torch.parallel.mesh"}
     assert expected <= set(probe["modules"])
 
 

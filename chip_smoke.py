@@ -121,7 +121,25 @@ each prints its seconds:
      those ranks at batch size 2 on (a)'s checkpoint over 4 held-out scenes
      against one process at batch size 1: the same scenes, PSNR and SSIM
      within 5e-3;
-  13. infer datasets, at the production width (`configs/infer.yaml`, 512²,
+  13. tensor parallel, two ranks at dp=1×tp=2 sharing the card over gloo
+     (`parallel/tp.py`: the encode split over view rows, each
+     volume-transformer layer over group rows, the render loop over target
+     views): (a) the trainer on the data-parallel phase's setting in
+     float32, a global batch of 2 at grad_accum 2, 4 fine micro-steps and a
+     validation, against this process at tp=1 on the same batches (each
+     loss within 5e-4 relative, the first all-reduced gradient within 5e-3
+     relative L2 per parameter), the ranks' parameters bit for bit after
+     each optimizer step, only rank 0 writing, each rank launching half of
+     tp=1's blend kernels per step, and each step's gathers and
+     reduce-scatters the count reckoned from the code; (b) the flagship at
+     512², B=1, 4 + 4 views, bf16, flash attention and the replay backward,
+     3 fine micro-steps per rank: launches and collectives per micro-step,
+     finite stats equal on both ranks; prints each rank's peak memory,
+     median micro-step and bytes gathered per micro-step (readings through
+     the host, not a speed); (c) `python -m lara_tpu_torch.train`'s `main`
+     at train.tp=2 on the two ranks for 2 micro-steps: rank 0 writes its
+     scalars and a checkpoint;
+  14. infer datasets, at the production width (`configs/infer.yaml`, 512²,
      flash attention, seeded weights): a GSO folder (3 sphere scenes × 24
      views on a sphere of cameras; RGBA PNGs written with every row filter
      in turn, z-depth PFMs, a Blender-convention transforms.json), two
@@ -139,7 +157,7 @@ each prints its seconds:
      seconds per GSO scene split into sample load (PNG decode, resize and
      PFM read per call), forward, metrics, depth metrics and panel, and
      KMeans at the dataset's init;
-  14. a JSON line describing the kernels (with each one's bound at the
+  15. a JSON line describing the kernels (with each one's bound at the
      path's shapes), the `nvidia-smi` line, and as the last line
      `{"ok": true, "device": {...}}`.
 
@@ -159,6 +177,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import json
 import re
 import shutil
@@ -185,6 +204,7 @@ from lara_tpu_torch.ops.rasterizer.tiled import (_pack_tile_bounds, bin_view, sl
 from lara_tpu_torch.ops.rasterizer.types import RasterizeConfig
 from lara_tpu_torch.ops.renderer import (opacity_activation, rotation_activation,
                                          scaling_activation)
+from lara_tpu_torch.parallel import tp
 from lara_tpu_torch.tools import profile_binning
 from lara_tpu_torch.tools.profile_binning import queued_ms
 from lara_tpu_torch.tools.profile_flash import sdpa_ms
@@ -1243,13 +1263,14 @@ def counted_steps(log: list):
 
     def counting(kind, fn):
         def run(*args):
-            before = launches()
+            before, tp_before = launches(), dict(tp.COUNTS)
             t0 = time.perf_counter()
             res = fn(*args)
             stats = res if kind == "train" else res[1]
             loss = stats["loss"].item()
             log.append({"kind": kind, "loss": loss, "seconds": time.perf_counter() - t0,
-                        "launches": {k: v - before[k] for k, v in launches().items()}})
+                        "launches": {k: v - before[k] for k, v in launches().items()},
+                        "tp": {k: v - tp_before[k] for k, v in tp.COUNTS.items()}})
             return res
         return run
 
@@ -1853,6 +1874,14 @@ def float32_everywhere() -> None:
     torch.backends.cudnn.benchmark = False
 
 
+def params_digest(net) -> str:
+    """A SHA-256 of the network's parameters."""
+    h = hashlib.sha256()
+    for prm in net.parameters():
+        h.update(prm.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 def dp_config(store: str, logdir: str, *overrides) -> Config:
     return load_config("configs/base.yaml", DP_CONFIG, overrides=[
         f"train_dataset.data_root={store}", f"test_dataset.data_root={store}",
@@ -1874,8 +1903,6 @@ def dp_probes(rec: dict, dev, digests: bool):
     optimizer step ("digests"); the checkpoint files written and loggers
     made in this process ("writes", "loggers"); the parameters' names
     ("names")."""
-    import hashlib
-
     from lara_tpu_torch.train import checkpoint, loop
     from lara_tpu_torch.train import state as state_mod
 
@@ -1903,10 +1930,7 @@ def dp_probes(rec: dict, dev, digests: bool):
         rec.setdefault("names", [n for n, _ in self.net.named_parameters()])
         updated, info = apply(self)
         if updated and digests:
-            h = hashlib.sha256()
-            for prm in self.params:
-                h.update(prm.detach().cpu().numpy().tobytes())
-            rec["digests"].append(h.hexdigest())
+            rec["digests"].append(params_digest(self.net))
         return updated, info
 
     def counted(key, fn):
@@ -1971,7 +1995,7 @@ def dp_train(dev, cfg: Config, digests: bool = False, f32: bool = False) -> dict
         raise AssertionError(f"data parallel: the plain blend ran {log[0]['plain_blend']} times")
     return {"trainer": tr, "losses": [e["loss"] for e in log[1:] if e["kind"] == "train"],
             "steps": [(e["kind"], e["launches"]) for e in log[1:]], "launches": launches(),
-            **rec}
+            "tp_steps": [(e["kind"], e["tp"]) for e in log[1:]], **rec}
 
 
 def dp_evaluate(dev, store: str, ckpts: str, folder: str, batch_size: int) -> tuple:
@@ -2185,12 +2209,287 @@ def dp_phase(dev, tmp: str, store: str) -> dict:
     return {"launches": total, "all_reduce_s": g["all_reduce_s"], "micro_s": med}
 
 
+# Tensor parallelism at dp=1×tp=2, two ranks sharing the card over gloo.
+# (a) a global batch of 2 at grad_accum 2, every micro-step fine, in f32
+TP_A = ["train.batch_size=2", "train_dataset.batch_size=2", "test_dataset.batch_size=2",
+        "train.grad_accum=2", "train.limit_train_batches=0.29", "train.start_fine=-1"]
+# (b) the flagship at 512², B=1, flash + replay, bf16: fine micro-steps
+TP_B_STEPS = 3
+# its first micro-step's loss against the same step in one process at
+# tp=1: bf16 autocast rounds each split matmul's rows apart (2^-8 relative
+# per rounding), and the loss averages those roundings
+TP_B_LOSS_RTOL = 1e-2
+# (c) the CLI: 2 micro-steps of B=1
+TP_C = ["train.batch_size=1", "train_dataset.batch_size=1", "test_dataset.batch_size=1",
+        "train.limit_train_batches=0.08", "train.tp=2"]
+
+
+def tp_reckoning(cfg: Config, fine: bool, grad: bool = True) -> dict:
+    """The tp collectives of one micro-step at tp=2, reckoned from the code
+    (PERF.md §6): forward gathers of the encode, of each
+    volume-transformer layer and of each render stage; with gradients the
+    reduce-scatter of each, and each layer's gather again in the remat
+    recomputation. (An eval step runs no remat.)"""
+    forward = 1 + cfg.model.num_layers + 1 + int(fine)
+    if not grad:
+        return {"gather": forward, "reduce": 0}
+    return {"gather": forward + (cfg.model.num_layers if cfg.model.remat else 0),
+            "reduce": forward}
+
+
+def tp_flagship_steps(dev, steps: int = TP_B_STEPS) -> dict:
+    """(b) on this rank (tp enabled by the caller; off for the reference):
+    the flagship `Config()` with flash attention and the replay backward,
+    bf16, one 512² scene of 4 + 4 views, `steps` fine micro-steps from
+    micro-step 2002; each one's seconds (synchronised), the seconds of its
+    tp collectives (each synchronised before and after), launches,
+    collective counts and stats; peak memory; the parameters' digest after
+    the optimizer step."""
+    cfg = with_knobs(Config())
+    net = LaRaNet(cfg, dtype=torch.bfloat16, device=dev,
+                  generator=torch.Generator().manual_seed(0))
+    batch = make_batch(13, cfg.n_views, dev, scenes=1)
+    state = TrainState(net, cfg.train, max_iters=30000, step=2002)
+    step = make_train_step(net, state, True, cfg.train.grad_accum)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    rec = {"micro_s": [], "launches": [], "tp": [], "stats": [], "collective_s": []}
+    for _ in range(steps):
+        before, tp_before = launches(), dict(tp.COUNTS)
+        sync(dev)
+        t0 = time.perf_counter()
+        with tp.timed_collectives(dev):
+            stats = step(batch)
+        sync(dev)
+        rec["micro_s"].append(time.perf_counter() - t0)
+        rec["launches"].append({k: v - before[k] for k, v in launches().items()})
+        rec["tp"].append({k: v - tp_before[k] for k, v in tp.COUNTS.items()})
+        rec["collective_s"].append(rec["tp"][-1]["gather_s"] + rec["tp"][-1]["reduce_s"])
+        rec["stats"].append({k: v.item() for k, v in stats.items()})
+    rec["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else 0.0
+    rec["digest"] = params_digest(net)
+    rec["total"] = launches()
+    rec["renders"] = 2 * batch["tar_rgb"].shape[1] // 2       # two stages, half the views
+    return rec
+
+
+def tp_rank(rank: int, tmp: str, store: str, device: str) -> None:
+    """One of the two ranks of the tensor-parallel phase, spawned: its own
+    gloo group on `device` (both ranks on one card), then (a) the trainer
+    at train.tp=2 in f32 on the global batch of 2, (b) `tp_flagship_steps`,
+    (c) `python -m lara_tpu_torch.train`'s `main` at train.tp=2. Saves its
+    results (rank 0 also (a)'s first all-reduced gradient) under `tmp`."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    from lara_tpu_torch.train.__main__ import main as train_main
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    float32_everywhere()
+    dist.init_process_group("gloo", init_method=f"file://{os.path.join(tmp, 'tp_gloo')}",
+                            rank=rank, world_size=2, timeout=datetime.timedelta(seconds=300))
+    try:
+        t0 = time.perf_counter()
+        a = dp_train(dev, dp_config(store, os.path.join(tmp, "tp2"), *TP_A, "train.tp=2"),
+                     digests=True, f32=True)
+        tr = a.pop("trainer")
+        a["n_sel"] = [m["n_sel"] for m in tr.micro_log]
+        a["broadcasts"] = [(m["tp"]["broadcast"], m["tp"]["broadcast_bytes"])
+                           for m in tr.micro_log]
+        layout = tr.layout
+        del tr
+        grads = a.pop("grads")
+        if rank == 0:
+            torch.save(grads, os.path.join(tmp, "tp2_grads.pt"))
+        del grads
+        res = {"a": a, "a_s": time.perf_counter() - t0}
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        with tp.enabled_for(layout):
+            res["b"] = tp_flagship_steps(dev)
+        res["b_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rec: dict = {}
+        reset_launches()
+        with dp_probes(rec, dev, False):
+            train_main([DP_CONFIG, f"train_dataset.data_root={store}",
+                        f"test_dataset.data_root={store}",
+                        f"logger.dir={os.path.join(tmp, 'tp_cli')}", *DP_OVERRIDES, *TP_C],
+                       device=str(dev))
+        res["c"] = {"writes": rec["writes"], "loggers": rec["loggers"], "launches": launches(),
+                    "all_reduces": len(rec["all_reduce_s"])}
+        res["c_s"] = time.perf_counter() - t0
+        torch.save(res, os.path.join(tmp, f"tp_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_phase(dev, tmp: str, store: str) -> dict:
+    """(g) tensor parallelism on the one card, two spawned ranks at dp=1×tp=2
+    over gloo (`tp_rank`), while this process runs the references at
+    tp=1 of (a) and of (b)'s first micro-step: (a) `DP_CONFIG` on the trainer phase's store in f32, a global
+    batch of 2, grad_accum 2, 4 fine micro-steps and a validation: each
+    loss within 5e-4 relative of the reference, the first all-reduced
+    gradient within 5e-3 relative L2 per parameter, the ranks' parameters
+    bit for bit after each optimizer step, the same batch broadcast to
+    both ranks every micro-step, rank 0 alone writing, each rank
+    launching half of the reference's blend kernels per step, and each
+    step's tp collectives the reckoning; (b) the flagship at 512² with
+    flash and the replay backward in bf16: launches and collectives per
+    micro-step, finite and equal stats, equal parameters, the first
+    micro-step's loss within TP_B_LOSS_RTOL of tp=1's; prints peak
+    memory, the median micro-step and the bytes gathered; (c) the CLI at
+    train.tp=2: rank 0 writes its scalars and the checkpoint of step 2.
+    Raises on any failure; returns the ranks' launches."""
+    import os
+
+    from lara_tpu_torch.train.checkpoint import latest_step
+
+    t_phase = time.perf_counter()
+    ranks = torch.multiprocessing.spawn(tp_rank, args=(tmp, store, str(dev)), nprocs=2,
+                                        join=False)
+    try:
+        torch.cuda.empty_cache()
+        ref = dp_train(dev, dp_config(store, os.path.join(tmp, "tp1"), *TP_A), f32=True)
+        del ref["trainer"]
+        torch.cuda.empty_cache()
+        ref_b = tp_flagship_steps(dev, steps=1)
+        torch.cuda.empty_cache()
+        ref_s = time.perf_counter() - t_phase
+        while not ranks.join(timeout=1):
+            if time.perf_counter() - t_phase > 600:
+                raise TimeoutError("tensor parallel: the ranks did not finish in 600 s")
+    finally:
+        for proc in ranks.processes:
+            if proc.is_alive():
+                proc.kill()
+    r0, r1 = (torch.load(os.path.join(tmp, f"tp_rank{r}.pt"), weights_only=False)
+              for r in (0, 1))
+    grads = torch.load(os.path.join(tmp, "tp2_grads.pt"), weights_only=True)
+
+    # (a)
+    a0, a1 = r0["a"], r1["a"]
+    cfg_a = dp_config(store, tmp, *TP_A)
+    names = ref["names"]
+    problems = []
+    loss_err = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(a0["losses"], ref["losses"]))
+    grad_err = {k: rel_l2(a, b) for k, a, b in zip(names, grads, ref["grads"])}
+    worst = max(grad_err, key=grad_err.get)
+    if len(a0["losses"]) != 4 or a0["losses"] != a1["losses"] or loss_err > DP_LOSS_RTOL:
+        problems.append(f"losses {a0['losses']} / {a1['losses']} against {ref['losses']}")
+    if grad_err[worst] > TRAIN_GRAD_RTOL:
+        problems.append(f"gradient of {worst}: relative L2 {grad_err[worst]:.3e}")
+    if len(a0["digests"]) != 2 or a0["digests"] != a1["digests"]:
+        problems.append(f"parameter digests {a0['digests']} / {a1['digests']}")
+    if (a0["writes"], a0["loggers"], a1["writes"], a1["loggers"]) != (1, 1, 0, 0):
+        problems.append(f"files: rank 0 {a0['writes']} checkpoint(s), {a0['loggers']} "
+                        f"logger(s); rank 1 {a1['writes']}, {a1['loggers']}")
+    if a0["n_sel"] != a1["n_sel"] or len(a0["all_reduce_s"]) != 2:
+        problems.append(f"views {a0['n_sel']} / {a1['n_sel']}; gradient all-reduces "
+                        f"{len(a0['all_reduce_s'])}")
+    if a0["broadcasts"] != a1["broadcasts"] or not all(n for n, _ in a0["broadcasts"]):
+        problems.append(f"batch broadcasts {a0['broadcasts']} / {a1['broadcasts']}")
+    halves = ("blend_fwd_stash", "blend_bwd", "blend_fwd")
+    cuda = dev.type == "cuda"
+    if a0["steps"] != a1["steps"] or [k for k, _ in a0["steps"]] != [k for k, _ in ref["steps"]] \
+            or any(2 * got[k] != want[k] for (_, got), (_, want) in zip(a0["steps"], ref["steps"])
+                   for k in halves) \
+            or cuda and not all(got["blend_fwd_stash"] for kind, got in a0["steps"]
+                                if kind == "train"):
+        problems.append(f"launches per step {a0['steps']} / {a1['steps']}, at tp=1 "
+                        f"{ref['steps']}")
+    for r in (a0, a1):
+        for kind, got in r["tp_steps"]:
+            want = tp_reckoning(cfg_a, True, kind == "train")
+            if {k: got[k] for k in want} != want:
+                problems.append(f"{kind} step collectives {got}, reckoned {want}")
+    # (b)
+    b0, b1 = r0["b"], r1["b"]
+    cfg_b = with_knobs(Config())
+    want_b = want_launches(cfg_b, b0["renders"]) if cuda else b0["launches"][0]
+    want_tp = tp_reckoning(cfg_b, True)
+    for b in (b0, b1):
+        for i, (got, tpc, st) in enumerate(zip(b["launches"], b["tp"], b["stats"])):
+            if got != want_b or {k: tpc[k] for k in want_tp} != want_tp \
+                    or not all(np.isfinite(list(st.values()))):
+                problems.append(f"(b) micro-step {i}: launches {got} (want {want_b}), "
+                                f"collectives {tpc} (want {want_tp}), stats {st}")
+    if b0["stats"] != b1["stats"] or b0["digest"] != b1["digest"]:
+        problems.append(f"(b) ranks differ: losses {[s['loss'] for s in b0['stats']]} / "
+                        f"{[s['loss'] for s in b1['stats']]}")
+    want_loss = ref_b["stats"][0]["loss"]
+    b_err = abs(b0["stats"][0]["loss"] - want_loss) / max(1.0, abs(want_loss))
+    if not b_err <= TP_B_LOSS_RTOL:
+        problems.append(f"(b) first micro-step's loss {b0['stats'][0]['loss']} against "
+                        f"{want_loss} at tp=1: relative {b_err:.3e}")
+    # (c)
+    cli_dir = os.path.join(tmp, "tp_cli")
+    scalars = os.path.join(cli_dir, "scalars.jsonl")
+    c0, c1 = r0["c"], r1["c"]
+    if latest_step(os.path.join(cli_dir, "ckpts")) != 2 or not os.path.exists(scalars) \
+            or not os.path.getsize(scalars) or (c0["writes"], c0["loggers"]) != (1, 1) \
+            or (c1["writes"], c1["loggers"]) != (0, 0) \
+            or cuda and not all(c["launches"]["blend_fwd_stash"] for c in (c0, c1)):
+        problems.append(f"(c) checkpoint step {latest_step(os.path.join(cli_dir, 'ckpts'))}, "
+                        f"writes {c0} / {c1}")
+    if problems:
+        raise AssertionError("tensor parallel: " + "; ".join(problems))
+
+    train_steps = [s for kind, s in a0["tp_steps"] if kind == "train"]
+    print(f"[tp-a] dp=1×tp=2, 2 ranks on one card over gloo, f32, global batch 2 at grad_accum "
+          f"2: 4 fine micro-steps and {len(a0['tp_steps']) - 4} eval step(s); largest loss "
+          f"difference {loss_err:.3e} (relative) against one process at tp=1; first optimizer "
+          f"step's gradient: largest relative L2 {grad_err[worst]:.3e} ({worst}), median "
+          f"{statistics.median(grad_err.values()):.3e}; parameters equal bit for bit after both "
+          f"optimizer steps, rank 0 alone wrote; views {a0['n_sel']}; launches per step "
+          f"(rank, tp=1) " + " ".join(
+              f"{kind}:{got['blend_fwd_stash'] or got['blend_fwd']}/"
+              f"{want['blend_fwd_stash'] or want['blend_fwd']}"
+              for (kind, got), (_, want) in zip(a0["steps"], ref["steps"]))
+          + f"; tp collectives per fine micro-step {train_steps[0]['gather']} gathers + "
+          f"{train_steps[0]['reduce']} reduce-scatters (reckoned {tp_reckoning(cfg_a, True)}), "
+          f"{train_steps[0]['gather_bytes'] / 1e6:.1f} + {train_steps[0]['reduce_bytes'] / 1e6:.1f}"
+          f" MB; batch broadcasts per micro-step {a0['broadcasts'][0][0]} "
+          f"({a0['broadcasts'][0][1] / 1e6:.1f} MB); gradient all-reduces "
+          f"{len(a0['all_reduce_s'])} (s "
+          f"{' '.join(f'{x:.3f}' for x in a0['all_reduce_s'])}); rank seconds {r0['a_s']:.2f}, "
+          f"reference {ref_s:.2f}")
+    for r, b in ((0, b0), (1, b1)):
+        print(f"[tp-b] rank {r}: flagship 512², B=1, 4 + 4 views, bf16, flash + replay, tp=2: "
+              f"micro-steps (s) {' '.join(f'{x:.3f}' for x in b['micro_s'])}, median "
+              f"{statistics.median(b['micro_s']):.3f}, of it in the tp collectives (s) "
+              f"{' '.join(f'{x:.3f}' for x in b['collective_s'])}; peak {b['peak_gb']:.2f} GB; gathered "
+              f"{b['tp'][-1]['gather_bytes'] / 1e6:.1f} MB and reduce-scattered "
+              f"{b['tp'][-1]['reduce_bytes'] / 1e6:.1f} MB per micro-step in "
+              f"{b['tp'][-1]['gather']} + {b['tp'][-1]['reduce']} collectives; launches per "
+              f"micro-step {json.dumps({k: v for k, v in b['launches'][0].items() if v})}; "
+              f"losses {' '.join(format(st['loss'], '.5f') for st in b['stats'])}, the first "
+              f"against one process at tp=1 {want_loss:.5f} (relative {b_err:.3e}) (readings "
+              f"through gloo on one card, not a speed)")
+    print(f"[tp-c] python -m lara_tpu_torch.train at train.tp=2 on 2 gloo ranks: 2 micro-steps, "
+          f"rank 0 wrote scalars.jsonl and the checkpoint of step 2, rank 1 nothing; launches "
+          f"rank 0 {json.dumps({k: v for k, v in c0['launches'].items() if v})}")
+    print(f"[tp] ranks (a) {r0['a_s']:.2f} s, (b) {r0['b_s']:.2f} s, (c) {r0['c_s']:.2f} s; "
+          f"phase {time.perf_counter() - t_phase:.2f} s")
+    total = {k: sum(r["a"]["launches"][k] + r["b"]["total"][k] + r["c"]["launches"][k]
+                    for r in (r0, r1)) for k in launches()}
+    return {"launches": total}
+
+
 def kernel_records(kernel, backward, flash_res, serving, binning, train, train_knobs,
-                   evaluation, infer, dp) -> list:
+                   evaluation, infer, dp, tp_res) -> list:
     """The kernels line: each kernel's launches on its paths (the blend
-    forward's on the serving, evaluate and data-parallel paths, the stash
-    forward's and backward's on the flagship and data-parallel training
-    paths, the flash forward's on the flash training and evaluate paths), its largest error against the plain
+    forward's on the serving, evaluate, data- and tensor-parallel paths,
+    the stash forward's and backward's on the flagship, data- and
+    tensor-parallel training paths, the replay backward's and the flash
+    kernels' on the flash training, evaluate and tensor-parallel paths),
+    its largest error against the plain
     version, its time beside the plain version's, the library call's (flash)
     and its bound, at the path's shapes."""
     bwd, fl, win = backward["train"], flash_res["train"], binning["train"]
@@ -2204,28 +2503,32 @@ def kernel_records(kernel, backward, flash_res, serving, binning, train, train_k
     return [
         rec("blend_fwd", "blend_fwd.cu", pallas + ":398",
             serving["launches"]["blend_fwd"] + evaluation["launches"]["blend_fwd"]
-            + infer["launches"]["blend_fwd"] + dp["launches"]["blend_fwd"],
+            + infer["launches"]["blend_fwd"] + dp["launches"]["blend_fwd"]
+            + tp_res["launches"]["blend_fwd"],
             max(r["max_abs_err"] for r in kernel.values()), kernel["eval"]["ms"],
             kernel["eval"]["plain_ms"], (kernel["eval"]["bound_ms"], kernel["eval"]["bound_by"])),
         rec("blend_fwd_stash", "blend_fwd.cu", pallas + ":398",
-            train["launches"]["blend_fwd_stash"] + dp["launches"]["blend_fwd_stash"],
+            train["launches"]["blend_fwd_stash"] + dp["launches"]["blend_fwd_stash"]
+            + tp_res["launches"]["blend_fwd_stash"],
             max(r["fwd_max_abs_err"] for r in backward.values()), bwd["fwd_stash_ms"],
             bwd["fwd_stash_plain_ms"], bwd["fwd_stash_bound"]),
         rec("blend_bwd", "blend_bwd.cu", pallas + ":457",
-            train["launches"]["blend_bwd"] + dp["launches"]["blend_bwd"],
+            train["launches"]["blend_bwd"] + dp["launches"]["blend_bwd"]
+            + tp_res["launches"]["blend_bwd"],
             max(r["max_abs_err"] for r in backward.values()), bwd["bwd_ms"],
             bwd["bwd_plain_ms"], bwd["bwd_bound"]),
         rec("blend_bwd_replay", "blend_bwd.cu", pallas + ":432",
-            train_knobs["launches"]["blend_bwd_replay"],
+            train_knobs["launches"]["blend_bwd_replay"] + tp_res["launches"]["blend_bwd_replay"],
             max(r["max_abs_err"] for r in backward.values()), bwd["replay_ms"],
             bwd["bwd_plain_ms"], bwd["replay_bound"]),
         rec("flash_fwd", "flash_fwd.cu", "lara_tpu/ops/flash.py:78",
             train_knobs["launches"]["flash_fwd"] + evaluation["launches"]["flash_fwd"]
-            + infer["launches"]["flash_fwd"],
+            + infer["launches"]["flash_fwd"] + tp_res["launches"]["flash_fwd"],
             max(r["max_abs_err"] for r in flash_res.values()), fl["fwd_ms"],
             fl["fwd_plain_ms"], fl["fwd_bound"], fl["fwd_library_ms"]),
         rec("flash_bwd", "flash_bwd.cu", "lara_tpu/ops/flash.py:78",
-            train_knobs["launches"]["flash_bwd"], max(r["max_abs_err"] for r in flash_res.values()),
+            train_knobs["launches"]["flash_bwd"] + tp_res["launches"]["flash_bwd"],
+            max(r["max_abs_err"] for r in flash_res.values()),
             fl["bwd_ms"], fl["bwd_plain_ms"], fl["bwd_bound"], fl["bwd_library_ms"]),
         rec("tile_windows", "tile_windows.cu", "tools/profile_binning.py:204",
             binning["tool_launches"]["tile_windows"],
@@ -2288,6 +2591,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         dp = phase("data parallel (world size 1, torchrun, 2 ranks, evaluate)", dp_phase,
                    dev, tmp, trainer["store"])
+        torch.cuda.empty_cache()
+        tp_res = phase("tensor parallel (dp=1×tp=2: f32 against tp=1, flagship 512², CLI)",
+                       tp_phase, dev, tmp, trainer["store"])
     print("[evaluate] launches on the evaluate paths: "
           + json.dumps({k: v for k, v in evaluation["launches"].items() if v}))
     torch.cuda.empty_cache()
@@ -2299,8 +2605,10 @@ def main() -> int:
 
     print("[dp] launches on the data-parallel paths: "
           + json.dumps({k: v for k, v in dp["launches"].items() if v}))
+    print("[tp] launches on the tensor-parallel paths: "
+          + json.dumps({k: v for k, v in tp_res["launches"].items() if v}))
     records = kernel_records(kernel, backward, flash_res, serving, binning, train, train_knobs,
-                             evaluation, infer, dp)
+                             evaluation, infer, dp, tp_res)
     for r in records:
         if r["launches"] <= 0:
             raise AssertionError(f"{r['name']} was not launched on its path")

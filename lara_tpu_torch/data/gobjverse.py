@@ -138,7 +138,7 @@ class GObjaverseDataset:
     def skip(self, index: int) -> None:
         """Draw sample `index`'s augmentation without loading it, so the
         generator is where loading it would leave it (a data-parallel rank
-        passing over another rank's sample, `data/loader.py`)."""
+        passing over another dp index's sample, `data/loader.py`)."""
         self._draw(str(self.scenes_name[index]))
 
     def __getitem__(self, index: int) -> dict:

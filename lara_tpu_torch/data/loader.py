@@ -13,7 +13,10 @@ and collates only its own slice of each (`parallel/mesh.py:rank_slice`),
 as the JAX package shards a global batch over dp; a dataset whose samples
 are random (the training split's views and backgrounds) draws for the
 other ranks' samples too (`skip`), so that with one worker thread each
-rank's samples are bit for bit those of one process.
+rank's samples are bit for bit those of one process. Under tensor
+parallelism the trainer passes the dp index and the dp size as `rank` and
+`world_size`: the tp ranks of one dp index collate the same scenes, and
+the trainer gives them the first one's draws (`parallel/tp.py:broadcast_batch`).
 """
 
 from __future__ import annotations

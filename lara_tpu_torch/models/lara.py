@@ -9,6 +9,12 @@ feature-volume sampling and the rasterizer run in f32 outside autocast.
 Renders are a plain loop over scenes × views; the coarse pass keeps each
 view's binning so the fine re-render skips the depth sort and window build.
 
+Under tensor parallelism (`parallel/tp.py`) the encode prefix runs on this
+rank's view rows, the volume transformer's group attention on its group
+rows, and both render loops on its target views; each is gathered back
+before the stage that reads all of it. With tp off those calls are the
+identity.
+
 Constants as in the reference: scene_size=0.5, opacity_shift=-2.1792,
 voxel_size=2/(2·grid_reso), scaling_shift=log(0.5·voxel/3), offset half-cell
 = 0.5·scene_size/n_offset_groups.
@@ -33,6 +39,7 @@ from lara_tpu_torch.ops.grid_sample import grid_sample_2d
 from lara_tpu_torch.ops.rasterizer import RasterizeConfig
 from lara_tpu_torch.ops.rasterizer.api import resolve_backend
 from lara_tpu_torch.ops.renderer import render_view, render_view_rebind
+from lara_tpu_torch.parallel import tp
 from lara_tpu_torch.utils.camera import Camera, invert_rigid, ray_to_plucker
 from lara_tpu_torch.utils.sh import rsh_cart_3
 
@@ -253,14 +260,17 @@ class LaRaNet(nn.Module):
         if view_mask is not None:
             view_mask = view_mask.to(torch.bool).reshape(-1, n_in)[:1].expand(B, n_in)
 
-        imgs = tar_rgb[:, :n_in].reshape(B * n_in, H, W, 3)
+        # the encode prefix is per view: tp splits its B·n_in rows
+        imgs = tp.shard_views(tar_rgb[:, :n_in].reshape(B * n_in, H, W, 3))
         rays_down = batch["tar_rays_down"][:, :n_in]
         feats = self.encode_images(
-            imgs, rays_down.reshape(B * n_in, *rays_down.shape[2:]))
-        w2cs = batch["tar_w2c"][:, :n_in].reshape(-1, 4, 4)
-        ixts = batch["tar_ixt"][:, :n_in].reshape(-1, 3, 3)
+            imgs, tp.shard_views(rays_down.reshape(B * n_in, *rays_down.shape[2:])))
+        w2cs = tp.shard_views(batch["tar_w2c"][:, :n_in].reshape(-1, 4, 4))
+        ixts = tp.shard_views(batch["tar_ixt"][:, :n_in].reshape(-1, 3, 3))
         reso = m.vol_feat_reso
         feat_vol = self.build_feat_vol(feats, w2cs, ixts, (H, W))
+        # cross-view from here (the volume transformer groups the views)
+        feat_vol = tp.shard_batch_dim(feat_vol, B * n_in)
         feat_vol = feat_vol.reshape(B, n_in, reso, reso, reso, -1)
         if self.view_embed is not None:
             ve = self.view_embed[0, :n_in, :, 0, 0, 0]       # [n_in, C]
@@ -296,16 +306,19 @@ class LaRaNet(nn.Module):
         rcfg = self._render_cfg(Hs, Ws, train)
         bg = batch["bg_color"].float()
 
-        # coarse renders; with the fine stage, keep each view's binning
+        # coarse renders of this rank's views (all N with tp off); with the
+        # fine stage, keep each view's binning on the rank that made it
+        views = tp.view_shard(N)
         frames, binned = [], []
         for b in range(B):
             res = [render_view(
                 _view(cams, b, v), rays_full[b, v], centers_c[b], sh_c[b],
                 opacity_c[b], scaling_c[b], rotation_c[b], bg[b, v], rcfg,
-                return_binned=with_fine) for v in range(N)]
+                return_binned=with_fine) for v in views]
             frames.append([r[0] for r in res] if with_fine else res)
             binned.append([r[1] for r in res] if with_fine else None)
-        outputs = _stack_frames(frames)
+        # the fine stage and the loss read every view
+        outputs = tp.gather_views(_stack_frames(frames), N)
         buffers = {"coarse": (centers_c, sh_c, opacity_c, scaling_c, rotation_c)}
 
         if with_fine:
@@ -319,10 +332,12 @@ class LaRaNet(nn.Module):
                 batch, fine_src, volume_feat_up, centers_c, sh_c, opacity_c,
                 n_in, (H, W), view_mask)
             frames_f = [[render_view_rebind(
-                _view(cams, b, v), rays_full[b, v], binned[b][v], centers_c[b],
+                _view(cams, b, v), rays_full[b, v], binned[b][i], centers_c[b],
                 sh_fine[b], opacity_c[b], sel_mask[b], scaling_c[b],
-                rotation_c[b], bg[b, v], rcfg) for v in range(N)] for b in range(B)]
-            outputs.update({f"{k}_fine": v for k, v in _stack_frames(frames_f).items()})
+                rotation_c[b], bg[b, v], rcfg) for i, v in enumerate(views)]
+                for b in range(B)]
+            fine = tp.gather_views(_stack_frames(frames_f), N)
+            outputs.update({f"{k}_fine": v for k, v in fine.items()})
             # full-set fine surfels, deselected ones disabled with the
             # reference's -1e4 opacity logit
             op_f = torch.where(sel_mask[..., None], opacity_c, -1e4)

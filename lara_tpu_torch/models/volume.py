@@ -5,7 +5,10 @@ with the reference's state-dict names.
 
 Volumes are channel-last ([B, D, H, W, C]) at every public function, as in
 the JAX package; the Conv3d / ConvTranspose3d permute to NCDHW and back.
-LayerNorm eps follows the JAX package (1e-6 throughout).
+LayerNorm eps follows the JAX package (1e-6 throughout). Under tensor
+parallelism each layer's group attention and MLP run on this rank's group
+rows (`parallel/tp.py`); the conv, the norm and the deconv see the whole
+volume.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch.nn as nn
 
 from lara_tpu_torch.models.attention import MultiHeadAttention
 from lara_tpu_torch.models.remat import check_policy, maybe_remat
+from lara_tpu_torch.parallel import tp
 
 
 def group_volume(x: torch.Tensor, block: int) -> torch.Tensor:
@@ -104,12 +108,16 @@ class GroupAttBlock(nn.Module):
         cond, cond_mask = _group_cond(image_feats, d // block_size, view_mask)
         patches = group_volume(x, block_size)                 # [B, G, l, C]
         g = patches.shape[1]
-        flat = patches.reshape(b * g, -1, c)
-        cond_flat = cond.reshape(b * g, cond.shape[2], cond.shape[3])
-        mask_flat = None if cond_mask is None else cond_mask.reshape(b * g, -1)
+        # tp splits the b·g group rows of the attention and the MLP
+        flat = tp.shard_groups(patches.reshape(b * g, -1, c))
+        cond_flat = tp.shard_groups(cond.reshape(b * g, cond.shape[2], cond.shape[3]))
+        mask_flat = None if cond_mask is None else tp.shard_groups(cond_mask.reshape(b * g, -1))
         flat = flat + self.cross_attn(self.norm1(flat), cond_flat, mask_flat)
         flat = flat + self.mlp(self.norm2(flat))
         flat = self.norm3(flat)
+        # the conv crosses groups: every row again (under remat the
+        # backward's recomputation gathers once more, on every rank alike)
+        flat = tp.shard_batch_dim(flat, b * g)
         vol = ungroup_volume(flat.reshape(b, g, -1, c), block_size, d)
         return vol + _channels_last(self.cnn(_channels_first(vol)))
 

@@ -1,7 +1,7 @@
 """Data-parallel scaling of the training run and of evaluation over the
-GPUs of one host:
+GPUs of one host, and with `--tp K` on a (dp = procs / K, K) layout:
 
-    python -m lara_tpu_torch.tools.profile_dp [--procs 4] [--device cuda]
+    python -m lara_tpu_torch.tools.profile_dp [--procs 4] [--tp 1] [--device cuda]
         [--config configs/synthetic256.yaml] [--size 256] [--out DIR]
 
 Writes a synthetic store of 84 scenes (75 to train, 9 held out) at
@@ -17,20 +17,38 @@ intervals of 10 micro-steps after the first), its scenes per second, the
 scaling efficiency, each evaluation's wall seconds, and the largest
 PSNR / SSIM difference between the two evaluations. With `--device cpu`
 (gloo) it is a rehearsal, and its times are the CPU's.
+
+With `--tp K` the N-process runs train at `train.tp=K`: a global batch of
+N / K scenes, each shared by K processes (evaluation stays dp-only, as in
+the JAX package). It also runs the collectives' probe (`--probe`, under
+the same launcher): `Trainer.fit` of 6 fine micro-steps on a global batch
+of N scenes (one loader thread) at train.tp=K, with every tp gather and
+reduce-scatter synchronised and timed (`tp.timed_collectives`), then the
+same micro-steps at tp=1 (dp = N). Rank 0 writes to `<out>/tp_probe.json`
+the medians of the last 4 tp=K micro-steps' seconds and `tp.COUNTS`
+(collectives, their bytes and seconds, batch broadcasts), its peak
+memory, and both fits' losses with their relative differences (a reading
+of the collectives' own time: the synchronisation stalls the overlap a
+real step would have).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
 import sys
 import time
 
+import torch
+
 from lara_tpu_torch.data import write_synthetic_store
+from lara_tpu_torch.parallel import tp
 
 MICRO = 30
+PROBE_STEPS, PROBE_WARM = 6, 2
 
 
 def _run(args: list, env: dict) -> float:
@@ -54,40 +72,109 @@ def _last(path: str, tag: str) -> float:
     return values[-1]
 
 
+def _data(store: str, device: str) -> list:
+    return [f"train_dataset.data_root={store}", f"test_dataset.data_root={store}",
+            "train_dataset.n_scenes=84", "test_dataset.n_scenes=84",
+            "train_dataset.num_workers=2", "train.grad_accum=1", "train.vis_every_n_steps=0",
+            f"--device={device}"]
+
+
+def probe(a) -> None:
+    """One process of the collectives' probe (see the module docstring):
+    two `Trainer.fit`s of PROBE_STEPS fine micro-steps on the same global
+    batches, at train.tp=K with the tp collectives timed, then at tp=1."""
+    import statistics
+
+    from lara_tpu_torch.config import load_config
+    from lara_tpu_torch.parallel.distributed import is_main, process_group, resolve_device
+    from lara_tpu_torch.train.__main__ import BASE_CONFIG
+    from lara_tpu_torch.train.loop import Trainer
+
+    device = resolve_device(a.device)
+    cuda = device.type == "cuda"
+    store = os.path.join(a.out, "store")
+    overrides = [o for o in _data(store, a.device) if not o.startswith("--")] + [
+        f"train_dataset.batch_size={a.procs}", f"train.batch_size={a.procs}",
+        f"test_dataset.batch_size={a.procs}", "train_dataset.num_workers=1", "train.n_epoch=1",
+        f"train.limit_train_batches={PROBE_STEPS / (75 // a.procs) + 1e-6}",
+        "train.limit_val_batches=0.01", "train.start_fine=-1", "train.ckpt_every_n_epoch=0"]
+    fits = {}
+    with process_group(device):
+        for k in (a.tp, 1):
+            cfg = load_config(str(BASE_CONFIG), a.config, overrides=overrides + [
+                f"train.tp={k}", f"logger.dir={os.path.join(a.out, f'probe_tp{k}')}"])
+            trainer = Trainer(cfg, device)
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(device)
+            with tp.timed_collectives(device) if k > 1 else contextlib.nullcontext():
+                trainer.fit()
+            fits[k] = {"log": trainer.micro_log,
+                       "peak_gb": torch.cuda.max_memory_allocated(device) / 1e9 if cuda else None}
+            del trainer
+            if cuda:
+                torch.cuda.empty_cache()
+    if not is_main():
+        return
+    log, ref = fits[a.tp]["log"], fits[1]["log"]
+    keep = log[PROBE_WARM:]
+    out = {"step_s": statistics.median(m["seconds"] for m in keep)}
+    out.update({c: statistics.median(m["tp"][c] for m in keep) for c in keep[0]["tp"]})
+    out.update(dp=a.procs // a.tp, tp=a.tp, scenes=a.procs, steps=len(keep),
+               peak_gb=fits[a.tp]["peak_gb"], losses=[m["loss"] for m in log],
+               losses_tp1=[m["loss"] for m in ref],
+               loss_rel_diff=[abs(m["loss"] - r["loss"]) / max(1.0, abs(r["loss"]))
+                              for m, r in zip(log, ref)])
+    with open(os.path.join(a.out, "tp_probe.json"), "w") as f:
+        json.dump(out, f)
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--procs", type=int, default=4)
+    p.add_argument("--tp", type=int, default=1)
     p.add_argument("--device", default="cuda")
     p.add_argument("--config", default="configs/synthetic256.yaml")
     p.add_argument("--size", type=int, default=256)
     p.add_argument("--out", default="outputs/profile_dp")
+    p.add_argument("--probe", action="store_true", help=argparse.SUPPRESS)
     a = p.parse_args(argv)
+    if a.probe:
+        return probe(a)
+    if a.procs % a.tp:
+        raise SystemExit(f"--procs {a.procs} does not divide by --tp {a.tp}")
     store = os.path.join(a.out, "store")
     if not os.path.exists(store):
         write_synthetic_store(store, n_scenes=84, n_views=12, img_size=(a.size, a.size))
     env = dict(os.environ, OMP_NUM_THREADS="1") if a.device == "cpu" else dict(os.environ)
-    data = [f"train_dataset.data_root={store}", f"test_dataset.data_root={store}",
-            "train_dataset.n_scenes=84", "test_dataset.n_scenes=84",
-            "train_dataset.num_workers=2", "train.grad_accum=1", "train.vis_every_n_steps=0",
-            f"--device={a.device}"]
-    res = {"procs": a.procs, "device": a.device, "runs": {}}
+    data = _data(store, a.device)
+    res = {"procs": a.procs, "tp": a.tp, "device": a.device, "runs": {}}
     for n in sorted({1, a.procs}):
         logdir = os.path.join(a.out, f"logs{n}")
-        batches = 75 // n                         # global batches per epoch
+        tp_n = a.tp if n == a.procs else 1
+        scenes = n // tp_n                        # the global batch, one scene per dp index
+        batches = 75 // scenes                    # global batches per epoch
         epochs = -(-MICRO // batches)
-        common = [a.config, *data, f"train_dataset.batch_size={n}", f"train.batch_size={n}",
-                  f"test_dataset.batch_size={n}", f"logger.dir={logdir}",
+        common = [a.config, *data, f"train_dataset.batch_size={scenes}",
+                  f"train.batch_size={scenes}", f"test_dataset.batch_size={scenes}",
+                  f"logger.dir={logdir}", f"train.tp={tp_n}",
                   f"train.limit_train_batches={MICRO / epochs / batches + 1e-6}"]
         wall = _run(_launch(n, "lara_tpu_torch.train") + common + [f"train.n_epoch={epochs}"],
                     env)
         step_s = _last(os.path.join(logdir, "scalars.jsonl"), "train/step_time_p50_s")
         res["runs"][n] = {"wall_s": wall, "micro_steps": MICRO, "step_time_p50_s": step_s,
-                          "scenes_per_s": n / step_s}
+                          "scenes_per_s": scenes / step_s, "tp": tp_n}
         if n == a.procs:
             res["resume_wall_s"] = _run(_launch(n, "lara_tpu_torch.train") + common
                                         + [f"train.n_epoch={epochs + 1}"], env)
     one, many = res["runs"][1], res["runs"][a.procs]
     res["scaling_efficiency"] = many["scenes_per_s"] / (a.procs * one["scenes_per_s"])
+
+    if a.tp > 1:
+        _run(_launch(a.procs, "lara_tpu_torch.tools.profile_dp")
+             + ["--probe", f"--tp={a.tp}", f"--device={a.device}", f"--config={a.config}",
+                f"--out={a.out}"], env)
+        with open(os.path.join(a.out, "tp_probe.json")) as f:
+            res["tp_probe"] = json.load(f)
 
     metrics = {}
     for n, batch in ((a.procs, a.procs), (1, 1)):

@@ -12,7 +12,12 @@ Data parallelism, one process per GPU:
     python -m torch.distributed.run --nproc_per_node=N -m lara_tpu_torch.train cfg.yaml ...
 
 Each process trains on `cuda:LOCAL_RANK` over NCCL (`--device cpu`: gloo)
-on its slice of every global batch (`train/loop.py`).
+on its slice of every global batch (`train/loop.py`). With `train.tp=K`
+the N processes form a (dp = N / K, K) grid: K processes share each slice
+and split its encode, volume-transformer groups and render loop, e.g.
+dp=2×tp=2:
+
+    python -m torch.distributed.run --nproc_per_node=4 -m lara_tpu_torch.train cfg.yaml train.tp=2
 """
 
 from __future__ import annotations

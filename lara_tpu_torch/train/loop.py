@@ -31,6 +31,14 @@ global batch's loss and stats and, after each optimizer step, the same
 parameters (`parallel/mesh.py`). Rank 0 alone builds the logger and writes
 scalars, panels (of the global batch, gathered) and checkpoints; a SIGTERM
 on any rank stops every rank at the same micro-step.
+
+Tensor parallelism (`train.tp=K`, the JAX trainer's `make_mesh(n_tp=...)`):
+the W ranks form a (dp = W / K, K) grid (`parallel/mesh.py:make_layout`,
+which raises unless W divides by K). The batch sizes must divide by dp; the
+K ranks of one dp index load the same scenes, take the first one's draws
+of views and backgrounds (`tp.broadcast_batch`), and split the encode, the
+volume transformer's groups and the render loop (`parallel/tp.py`), in the
+train steps and in validation. Panels gather over dp only.
 """
 
 from __future__ import annotations
@@ -50,8 +58,10 @@ from lara_tpu_torch.data import DataLoader, device_prefetch, get_dataset
 from lara_tpu_torch.eval.vis import vis_images, write_png
 from lara_tpu_torch.models import LaRaNet
 from lara_tpu_torch.parallel.distributed import (any_rank, is_main, maybe_initialize_distributed,
-                                                 rank, resolve_device, world_size)
-from lara_tpu_torch.parallel.mesh import check_divides, gather_batch, replicate_state
+                                                 resolve_device, world_size)
+from lara_tpu_torch.parallel import tp
+from lara_tpu_torch.parallel.mesh import (check_divides, gather_batch, make_layout,
+                                          replicate_state)
 from lara_tpu_torch.train import checkpoint as ckpt
 from lara_tpu_torch.train.state import TrainState
 from lara_tpu_torch.train.step import make_eval_step, make_train_step
@@ -121,23 +131,25 @@ class Trainer:
     """`fit()` runs the schedule above on `device` (the CUDA device unless
     the caller asks for another; without one it raises). After a fit,
     `micro_log` holds one record per micro-step (epoch, scenes, with_fine,
-    n_sel, seconds), `val_epochs` and `ckpt_epochs` what ran, and
+    n_sel, seconds, loss, and under tensor parallelism the `tp.COUNTS` of
+    its batch broadcast and step), `val_epochs` and `ckpt_epochs` what ran, and
     `loader_wait_s` / `fit_s` the seconds spent waiting on the loader and in
     the whole fit. Under a launcher (or in a process group the caller made)
     the trainer is one rank of a data-parallel run, and a `cuda` device
     without an index is `cuda:LOCAL_RANK`."""
 
     def __init__(self, cfg: Config, device=None):
-        if cfg.train.tp != 1:
-            raise NotImplementedError("train.tp > 1 (tensor parallelism) is not ported")
         self.cfg = cfg
         self.workdir = cfg.logger.dir
         os.makedirs(self.workdir, exist_ok=True)
         self.device = resolve_device(device)
         maybe_initialize_distributed(self.device)
-        self.rank, self.world = rank(), world_size()
-        check_divides(cfg.train_dataset.batch_size, self.world, "train_dataset.batch_size")
-        check_divides(cfg.test_dataset.batch_size, self.world, "test_dataset.batch_size")
+        self.layout = make_layout(cfg.train.tp)
+        what = ("the world size" if self.layout.tp == 1
+                else f"the data-parallel size (world size {world_size()} / train.tp)")
+        for key in ("train_dataset", "test_dataset"):
+            check_divides(getattr(cfg, key).batch_size, self.layout.dp, f"{key}.batch_size",
+                          what)
         self.net = LaRaNet(cfg, device=self.device,
                            generator=torch.Generator().manual_seed(cfg.train.seed))
         self._preempted = False
@@ -180,7 +192,8 @@ class Trainer:
         cfg, t = self.cfg, self.cfg.train
         train_ds = get_dataset(cfg.train_dataset.dataset_name)(cfg.train_dataset)
         val_ds = get_dataset(cfg.test_dataset.dataset_name)(cfg.test_dataset)
-        shard = dict(rank=self.rank, world_size=self.world)
+        # the tp ranks of one dp index load the same samples
+        shard = dict(rank=self.layout.dp_index, world_size=self.layout.dp)
         train_loader = DataLoader(train_ds, cfg.train_dataset.batch_size, shuffle=True,
                                   num_workers=cfg.train_dataset.num_workers, seed=t.seed,
                                   **shard)
@@ -202,8 +215,9 @@ class Trainer:
         previous = self._install_preemption_handler()
         t_fit = time.perf_counter()
         try:
-            return self._fit(state, train_loader, val_loader, start_epoch, ckpt_dir,
-                             logger)
+            with tp.enabled_for(self.layout):
+                return self._fit(state, train_loader, val_loader, start_epoch, ckpt_dir,
+                                 logger)
         finally:
             self.fit_s = time.perf_counter() - t_fit
             if logger is not None:
@@ -250,6 +264,8 @@ class Trainer:
                     self.loader_wait_s += time.perf_counter() - t0
                     if batch is None:
                         break
+                    counts = dict(tp.COUNTS)
+                    batch = tp.broadcast_batch(batch)
                     global_step = micro // t.grad_accum
                     sb = {k: v for k, v in batch.items() if k != "meta"}
                     n_sel = None
@@ -269,7 +285,10 @@ class Trainer:
                     self.micro_log.append({
                         "epoch": epoch, "micro": micro, "with_fine": with_fine,
                         "n_sel": n_sel, "scenes": [m["scene"] for m in batch["meta"]],
-                        "seconds": time.perf_counter() - t0})
+                        "seconds": time.perf_counter() - t0, "loss": float(stats["loss"])})
+                    if tp.enabled():
+                        self.micro_log[-1]["tp"] = {k: v - counts[k]
+                                                    for k, v in tp.COUNTS.items()}
                     micro += 1
                     if micro % (10 * t.grad_accum) == 0:
                         last_stats = {k: float(v) for k, v in stats.items()}
@@ -323,6 +342,7 @@ class Trainer:
                 batch = next(batches, None)
                 if batch is None:
                     break
+                batch = tp.broadcast_batch(batch)
                 out, stats = efn({k: v for k, v in batch.items() if k != "meta"},
                                  global_step)
                 if j == 0:
@@ -338,12 +358,13 @@ class Trainer:
 
     @staticmethod
     def _log_panels(logger, out, batch, step: int, prefix: str) -> None:
-        """The panels of the global batch (every rank's slice, gathered: a
-        collective, so every rank calls it), written where `logger` is not
-        None (rank 0)."""
-        host_out = {k: gather_batch(v).float().cpu().numpy() for k, v in out.items()
+        """The panels of the global batch (every dp rank's slice, gathered
+        over the dp group: a collective, so every rank calls it), written
+        where `logger` is not None (rank 0)."""
+        group = tp.dp_group()
+        host_out = {k: gather_batch(v, group).float().cpu().numpy() for k, v in out.items()
                     if isinstance(v, torch.Tensor) and k.startswith(VIS_KEYS)}
-        host_batch = {"tar_rgb": gather_batch(batch["tar_rgb"]).float().cpu().numpy()}
+        host_batch = {"tar_rgb": gather_batch(batch["tar_rgb"], group).float().cpu().numpy()}
         if logger is None:
             return
         for key, value in vis_images(host_out, host_batch).items():

@@ -13,7 +13,10 @@ Every batch mean is the global batch's (`parallel/mesh.py:global_mean`):
 under data parallelism each rank holds its slice of the batch, and the
 loss and the stats, PSNR from the global MSE included, are those of the
 whole batch on every rank, as in the JAX package whatever its mesh. Without
-a process group they are the one-process means.
+a process group they are the one-process means. Under tensor parallelism
+the outputs are gathered over tp first (`parallel/tp.py`), so each input of
+a mean is replicated over tp and the same `global_mean` is the dp mean,
+its 1/W seed each tp rank's share: nothing here changes.
 """
 
 from __future__ import annotations

@@ -18,7 +18,9 @@ lightning/utils.py:89-107, train_lightning.py:73-74):
     ranks once per optimizer step, on that last micro-step, before the
     1/grad_accum scale and the clip (`parallel/mesh.py`: each rank's
     gradient is its slice's part of the global loss's), so every rank
-    clips the same norm and holds the same parameters after the update.
+    clips the same norm and holds the same parameters after the update;
+    under tensor parallelism each rank's gradient is a partial sum too
+    (`parallel/tp.py`), and the same all-reduce over the world completes it.
 """
 
 from __future__ import annotations

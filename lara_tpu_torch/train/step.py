@@ -9,7 +9,9 @@ count `state.step // grad_accum` (the reference's global_step), as
 Under data parallelism each rank calls the step on its slice of the global
 batch; the loss and the stats a step returns are the global batch's
 (`train/loss.py`), and the gradients are summed over the ranks once per
-optimizer step (`train/state.py`).
+optimizer step (`train/state.py`). Under tensor parallelism the tp ranks of
+one dp index call the step on the same scenes, and the forward splits its
+work between them (`parallel/tp.py`, enabled by the caller).
 """
 
 from __future__ import annotations

@@ -56,7 +56,8 @@ def test_every_module_imports(probe):
                 "lara_tpu_torch.data.gso", "lara_tpu_torch.data.instant3d",
                 "lara_tpu_torch.data.mipnerf", "lara_tpu_torch.models.convert",
                 "lara_tpu_torch.tools.convert_checkpoint",
-                "lara_tpu_torch.parallel.distributed", "lara_tpu_torch.parallel.mesh"}
+                "lara_tpu_torch.parallel.distributed", "lara_tpu_torch.parallel.mesh",
+                "lara_tpu_torch.parallel.tp"}
     assert expected <= set(probe["modules"])
 
 

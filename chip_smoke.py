@@ -98,7 +98,13 @@ each prints its seconds:
      metrics and every panel, video frame and non-empty mesh written;
      prints the mean PSNR / SSIM, seconds per scene split into forward,
      metrics, panel write, video renders and write, mesh renders and the
-     TSDF, and the video path's renders per second;
+     TSDF, and the video path's renders per second; then extracts (a)'s
+     first scene's mesh again at a 2/64 voxel (its 256² meshes hold ~2M
+     triangles, ~140 s a turntable frame) and starts `python -m
+     lara_tpu_torch.tools.mesh_render` on it (`--frames 4
+     --size 256`: 3 elevations × 4 = 12 frames) in the background, and
+     waits for it after phase 13: exit 0, the 12 PNG frames (an mp4 where
+     OpenCV imports), none all background; prints its seconds per frame;
   12. data parallel, with `configs/synthetic256.yaml` on the trainer's
      store: (a) the trainer (B=3, grad_accum 2, 6 micro-steps, the fine
      stage from micro-step 4) in a process group of world size 1 over NCCL
@@ -157,7 +163,21 @@ each prints its seconds:
      seconds per GSO scene split into sample load (PNG decode, resize and
      PFM read per call), forward, metrics, depth metrics and panel, and
      KMeans at the dataset's init;
-  15. a JSON line describing the kernels (with each one's bound at the
+  15. single image → 3D (mvgen) at the production width
+     (`configs/infer.yaml`: 512², 4 views, all of them inputs, flash
+     attention, seeded weights): an RGBA 400×300 and an RGB 512²
+     conditioning PNG through `MVGenDataset` with the procedural
+     zero123plus-v1.1 generator (`data/synthetic.py:sphere_mvgen_pipeline`,
+     a 3×2 grid of 320² sphere renders from the model's poses on gray):
+     grid slice, matte, INTER_AREA 320² → 512², the rig's cameras; then
+     `evaluate` (`_evaluate`, the dataset injected) with a 24-frame video:
+     both scenes scored with null means (no novel view), panels and videos
+     written, 8 + 24 blend and 12 flash forwards per scene; then one
+     zero123plus-v1.2 and one sv3d scene (21 frames of 576² down to 512²)
+     through `collate` → `make_forward` (8 + 12 launches each); prints the
+     generator's and the front end's seconds per scene, the forward and
+     the video's renders and write;
+  16. a JSON line describing the kernels (with each one's bound at the
      path's shapes), the `nvidia-smi` line, and as the last line
      `{"ok": true, "device": {...}}`.
 
@@ -179,6 +199,7 @@ import contextlib
 import dataclasses
 import hashlib
 import json
+import os
 import re
 import shutil
 import statistics
@@ -192,7 +213,7 @@ import numpy as np
 import torch
 
 from lara_tpu_torch.config import (Config, ModelConfig, RenderConfig, TrainConfig,
-                                   load_config)
+                                   load_config, parse_cli)
 from lara_tpu_torch.models import LaRaNet
 from lara_tpu_torch.models import vit
 from lara_tpu_torch.ops import _build, flash
@@ -1437,10 +1458,12 @@ def timed_evaluate(log: dict):
     load on, so that every scene's load and forward fall in it,
     `log["setup"]` those spent before it (the dataset's KMeans),
     `log["sub"]` / `log["calls"]` the seconds and calls of the readers in
-    SAMPLE_PARTS, `log["scenes"]` each scene's kernel launches (from one
+    SAMPLE_PARTS, `log["mesh_scene"]` the arguments of the first
+    `extract_mesh` call, `log["scenes"]` each scene's kernel launches (from one
     forward to the next; batch size 1), `log["plain_blend"]` the plain
     blend's runs and `log["window"]` the host clock at the first sample
-    load."""
+    load. Yields a function that times an injected dataset's sample loads
+    the same way."""
     from lara_tpu_torch import evaluate
     from lara_tpu_torch.data import gso
     from lara_tpu_torch.eval import render_artifacts
@@ -1474,10 +1497,17 @@ def timed_evaluate(log: dict):
             return res
         return run
 
-    def get_dataset(name):
-        cls = saved["get_dataset"](name)
+    def timed_class(cls):
         return type(cls.__name__, (cls,), {"__getitem__": timed("sample load",
                                                                  cls.__getitem__)})
+
+    def get_dataset(name):
+        return timed_class(saved["get_dataset"](name))
+
+    def time_dataset(ds):
+        """An injected dataset, its samples' loads timed as get_dataset's."""
+        ds.__class__ = timed_class(type(ds))
+        return ds
 
     def make_forward(*args, **kw):
         fwd = saved["make_forward"](*args, **kw)
@@ -1495,6 +1525,8 @@ def timed_evaluate(log: dict):
     def artifacts(kind, fn):
         def run(*args, **kw):
             artifact[0] = kind
+            if kind == "mesh":              # the first scene's surfels, for a coarser mesh
+                log.setdefault("mesh_scene", args)
             t0 = time.perf_counter()
             res = fn(*args, **kw)
             rest = "video write" if kind == "video" else "TSDF integrate + extract + save"
@@ -1528,7 +1560,7 @@ def timed_evaluate(log: dict):
     render_artifacts._render_frames = render_frames
     cuda_blend.blend_tiles_reference = plain_blend
     try:
-        yield
+        yield time_dataset
         marks.append(launches())
         log["scenes"] = [{k: b[k] - a[k] for k in b} for a, b in zip(marks, marks[1:])]
     finally:
@@ -1540,23 +1572,33 @@ def timed_evaluate(log: dict):
         cuda_blend.blend_tiles_reference = plain
 
 
-def run_evaluate(tag: str, args: list, want: dict, folder: str, scored: bool = True) -> tuple:
+def run_evaluate(tag: str, args: list, want: dict, folder: str, scored: bool = True,
+                 dataset=None) -> tuple:
     """`python -m lara_tpu_torch.evaluate` through its `main` in this process
-    (`args` name the save and metric folders under `folder`); raises unless
-    every scene launched exactly `want`, the plain blend never ran, and the
-    metrics are finite and in their JSON (`scored=False`: a dataset without
-    novel views, which has no PSNR). Returns (metrics, log)."""
+    (`args` name the save and metric folders under `folder`), or, given a
+    `dataset`, through `_evaluate` with that dataset on the config `main`
+    would load; raises unless every scene launched exactly `want`, the
+    plain blend never ran, and the metrics are finite and in their JSON
+    (`scored=False`: a dataset without novel views, which has no PSNR).
+    Returns (metrics, log)."""
     import os
 
-    from lara_tpu_torch.evaluate import main as evaluate_main
+    from lara_tpu_torch import evaluate
 
     log = {}
     torch.cuda.empty_cache()
     reset_launches()
+    args = args + [f"infer.save_folder={folder}/{tag}", f"infer.metric_path={folder}/{tag}_metrics"]
     t0 = time.perf_counter()
-    with timed_evaluate(log):
-        metrics = evaluate_main(args + [f"infer.save_folder={folder}/{tag}",
-                                        f"infer.metric_path={folder}/{tag}_metrics"])
+    with timed_evaluate(log) as time_dataset:
+        if dataset is None:
+            metrics = evaluate.main(args)
+        else:
+            paths, overrides = parse_cli(args)
+            cfg = load_config(str(evaluate.CONFIGS / "base.yaml"),
+                              str(evaluate.CONFIGS / "infer.yaml"), *paths, overrides=overrides)
+            metrics = evaluate._evaluate(cfg, torch.device("cuda", 0), torch.bfloat16,
+                                         dataset=time_dataset(dataset))
     wall = time.perf_counter() - t0
     n = len(metrics["scenes"])
     if log["plain_blend"]:
@@ -1629,6 +1671,7 @@ def evaluate_phase(dev, tmp: str, trainer: dict) -> dict:
     import os
 
     from lara_tpu_torch.data import write_synthetic_store
+    from lara_tpu_torch.eval import render_artifacts
 
     t_phase = time.perf_counter()
     none = {k: 0 for k in launches()}
@@ -1675,7 +1718,62 @@ def evaluate_phase(dev, tmp: str, trainer: dict) -> dict:
           f"{res_b['mean_psnr']:.4f} mean SSIM {res_b['mean_ssim']:.5f}")
     print(f"[evaluate] phase {time.perf_counter() - t_phase:.2f} s")
     total = {k: sum(c[k] for c in log_a["scenes"] + log_b["scenes"]) for k in none}
-    return {"launches": total}
+    # the turntable's Python loop costs ~70 µs a triangle on the card's
+    # host, and these meshes of a 27-step checkpoint hold ~2M triangles
+    # (~140 s a frame): it turns a coarser TSDF mesh of (a)'s first scene
+    path, gauss, cfg, tm = log_a.pop("mesh_scene")
+    coarse = os.path.join(tmp, "a", "coarse.obj")
+    t0 = time.perf_counter()
+    render_artifacts.extract_mesh(coarse, gauss, cfg, tm, voxel_size=MESH_VOXEL)
+    print(f"[evaluate-a] {os.path.basename(path)} again at voxel {MESH_VOXEL:.4f} for the "
+          f"turntable: {time.perf_counter() - t0:.2f} s")
+    return {"launches": total, "obj": coarse}
+
+
+MESH_FRAMES, MESH_SIZE = 4, 256        # mesh_render --frames / --size: 3 elevations × 4 frames
+MESH_VOXEL = 2 / 64                     # the turntable's TSDF voxel (evaluate's: 2 / 256)
+
+
+def start_mesh_render(obj: str, out: str) -> dict:
+    """`python -m lara_tpu_torch.tools.mesh_render OBJ --frames 4 --size 256`
+    started in the background (its NumPy loop over triangles runs on one
+    host core while the next phases use the card)."""
+    with open(obj) as f:
+        n_faces = sum(ln.startswith("f ") for ln in f)
+    cmd = [sys.executable, "-m", "lara_tpu_torch.tools.mesh_render", obj, "--out", out,
+           "--frames", str(MESH_FRAMES), "--size", str(MESH_SIZE)]
+    proc = subprocess.Popen(cmd, cwd=str(Path(__file__).resolve().parent),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return {"proc": proc, "out": out, "faces": n_faces, "t0": time.perf_counter()}
+
+
+def finish_mesh_render(mesh: dict, smi: str) -> None:
+    """Wait for the turntable; raises unless it exits 0 and writes its 12
+    frames (an mp4 where OpenCV imports, else PNG frames, each with some
+    pixel off the white background)."""
+    from lara_tpu_torch.data.image_io import read_png
+
+    t_wait = time.perf_counter()
+    out, err = mesh["proc"].communicate(timeout=900)
+    wall = time.perf_counter() - mesh["t0"]
+    if mesh["proc"].returncode != 0:
+        raise AssertionError(f"mesh_render failed ({mesh['proc'].returncode}): "
+                             f"{out[-2000:]} {err[-2000:]}")
+    frames = 3 * MESH_FRAMES
+    folder = os.path.splitext(mesh["out"])[0]
+    if not os.path.isfile(mesh["out"]):
+        names = sorted(os.listdir(folder))
+        if names != [f"frame_{i:04d}.png" for i in range(frames)]:
+            raise AssertionError(f"mesh_render wrote {names}")
+        for name in names:
+            if not (read_png(os.path.join(folder, name)) != 255).any():
+                raise AssertionError(f"mesh_render: {name} is all background")
+    per_frame = re.search(r"([0-9.]+) s per frame", out)
+    print(f"[mesh] turntable of the evaluate phase's coarse .obj ({mesh['faces']} triangles): "
+          f"{frames} frames of {MESH_SIZE}² ({MESH_FRAMES} per elevation × 3), "
+          f"{per_frame.group(1) if per_frame else '?'} s per frame (its NumPy loop, on one host "
+          f"core beside the data- and tensor-parallel phases), {wall:.2f} s in all, "
+          f"{time.perf_counter() - t_wait:.2f} s of it waited for here; {smi}")
 
 
 INFER_VIDEO_FRAMES = 24
@@ -1836,6 +1934,127 @@ def infer_datasets_phase(dev, tmp: str, smi: str) -> dict:
     print(f"[infer] phase {time.perf_counter() - t_phase:.2f} s")
     total = {k: want_gso[k] * 2 * n + want_i3d[k] * len(res_i3d["scenes"]) + want_mip[k]
              for k in none}
+    return {"launches": total}
+
+
+MVGEN_VIDEO_FRAMES = 24
+
+
+def conditioning_pngs(folder: str) -> list:
+    """Two conditioning images: an RGBA 400×300 (W×H) with a soft-edged
+    disc on transparency (the pad-to-square and white-composite path) and
+    an RGB 512² gradient with a disc."""
+    from lara_tpu_torch.data.image_io import encode_png
+
+    os.makedirs(folder, exist_ok=True)
+    yy, xx = np.mgrid[0:300, 0:400].astype(np.float32)
+    a = np.clip(90 - np.hypot(xx - 200, yy - 150), 0, 1)
+    rgba = np.stack([np.full_like(a, 0.8), 0.3 + 0.4 * yy / 300, np.full_like(a, 0.2), a], -1)
+    yy, xx = np.mgrid[0:512, 0:512].astype(np.float32)
+    disc = (np.hypot(xx - 256, yy - 256) < 160)[..., None]
+    rgb = np.where(disc, [0.1, 0.4, 0.9], np.stack([xx / 512, yy / 512, 0.5 + 0 * xx], -1))
+    paths = []
+    for name, img in (("a_rgba.png", rgba), ("b_rgb.png", rgb)):
+        paths.append(os.path.join(folder, name))
+        with open(paths[-1], "wb") as f:
+            f.write(encode_png((img * 255).round().astype(np.uint8)))
+    return paths
+
+
+def timed_pipeline(pipe, seconds: list):
+    """`pipe`, each call's seconds appended to `seconds`."""
+    def run(image):
+        t0 = time.perf_counter()
+        out = pipe(image)
+        seconds.append(time.perf_counter() - t0)
+        return out
+    return run
+
+
+def mvgen_phase(dev, tmp: str, smi: str) -> dict:
+    """(h) Single image → 3D at the production width (`configs/infer.yaml`,
+    512², 4 views, all inputs, flash attention, seeded weights): two
+    conditioning PNGs (RGBA 400×300, RGB 512²) through `MVGenDataset` with
+    the procedural zero123plus-v1.1 generator (`sphere_mvgen_pipeline`:
+    a 3×2 grid of 320² sphere renders from the model's poses on gray),
+    i.e. slice, matte, INTER_AREA 320² → 512², the rig's cameras, then
+    `evaluate` (`_evaluate` with the dataset injected) with a 24-frame
+    video; then one scene each of zero123plus-v1.2 and sv3d (21 frames of
+    576², INTER_AREA down to 512²) through `collate` → `make_forward`.
+    Launches are checked per scene; prints the generator's seconds per
+    scene apart from the front end's (slice + matte + resize + batch)."""
+    from lara_tpu_torch.data.loader import collate, to_device
+    from lara_tpu_torch.data.mvgen import MVGenDataset
+    from lara_tpu_torch.data.synthetic import sphere_mvgen_pipeline
+
+    t_phase = time.perf_counter()
+    none = {k: 0 for k in launches()}
+    cond = conditioning_pngs(os.path.join(tmp, "mvgen_cond"))
+    args = ["infer_dataset.dataset_name=mvgen",
+            f"infer_dataset.data_root={os.path.dirname(cond[0])}", "infer_dataset.batch_size=1", "infer_dataset.num_workers=0",
+            f"infer.video_frames={MVGEN_VIDEO_FRAMES}", "model.flash_attn=True"]
+    cfg = load_config("configs/base.yaml", "configs/infer.yaml", overrides=args)
+    if cfg.n_views != 4:
+        raise AssertionError(f"configs/infer.yaml serves {cfg.n_views} views, not 4")
+    # make_forward renders the sample's 4 views coarse and fine; the video
+    # renders each frame once; the ViT runs its 12 blocks once
+    want = {**none, "blend_fwd": 2 * 4 + MVGEN_VIDEO_FRAMES,
+            "flash_fwd": cfg.model.encoder_depth}
+    gen_s, load_s = [], []
+    ds = MVGenDataset(cfg.infer_dataset, pipeline=timed_pipeline(
+        sphere_mvgen_pipeline("zero123plus-v1.1"), gen_s))
+    if ds.image_paths != cond:
+        raise AssertionError(f"MVGenDataset found {ds.image_paths}, not {cond}")
+    res, log = run_evaluate("mvgen", args, want, tmp, scored=False, dataset=ds)
+    folder = os.path.join(tmp, "mvgen")
+    if res["scenes"] != ["0", "1"] or any(res[k] is not None for k in res if
+                                          k.startswith("mean_")):
+        raise AssertionError(f"mvgen metrics {res}")
+    for name in res["scenes"]:
+        if not os.path.isfile(os.path.join(folder, f"{name}.png")):
+            raise AssertionError(f"mvgen: no panel {name}.png")
+        check_video(folder, name, MVGEN_VIDEO_FRAMES)
+    with open(os.path.join(tmp, "mvgen_metrics", "mvgen.json")) as f:
+        if set(json.load(f)) != set(res):
+            raise AssertionError("mvgen: the metrics JSON's keys")
+    n = len(res["scenes"])
+    front = log["s"]["sample load"] / n - sum(gen_s) / n
+    print(f"[mvgen] zero123plus-v1.1, 2 scenes at 512² (4 input views, no novel view, "
+          f"{MVGEN_VIDEO_FRAMES}-frame videos): seconds per scene: generator (6 sphere "
+          f"renders of 320², host) {sum(gen_s) / n:.4f}; front end (pad, slice, matte, "
+          f"INTER_AREA 320² → 512², batch) {front:.4f}; forward {log['s']['forward'] / n:.4f};"
+          f" video renders {log['s']['video renders'] / n:.4f}; video write "
+          f"{log['s']['video write'] / n:.4f}; panel write {log['s']['panel write'] / n:.4f}; "
+          f"launches per scene {log['scenes'][0]}; {smi}")
+
+    # the other two rigs, one scene each, through make_forward
+    net = LaRaNet(cfg, device=dev)
+    fwd = make_forward(net, with_fine=True)
+    other = {}
+    for backend in ("zero123plus-v1.2", "sv3d"):
+        seconds = []
+        ds = MVGenDataset(cfg.infer_dataset, image_paths=cond[1:], backend=backend,
+                          pipeline=timed_pipeline(sphere_mvgen_pipeline(backend), seconds))
+        t0 = time.perf_counter()
+        batch = collate([ds[0]])
+        load = time.perf_counter() - t0
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fwd(to_device(batch, dev))
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+        got = launches()
+        check_outputs(out, cfg.n_views, views=4)
+        if got != {**none, "blend_fwd": 8, "flash_fwd": cfg.model.encoder_depth}:
+            raise AssertionError(f"mvgen {backend}: launches {got}")
+        other[backend] = got
+        print(f"[mvgen] {backend}: generator {seconds[0]:.4f} s, front end "
+              f"{load - seconds[0]:.4f} s, forward {fwd_s:.4f} s, launches {got}, mean "
+              f"acc_map_fine {out['acc_map_fine'].mean().item():.4f}")
+        del out
+    print(f"[mvgen] phase {time.perf_counter() - t_phase:.2f} s")
+    total = {k: want[k] * n + sum(o[k] for o in other.values()) for k in none}
     return {"launches": total}
 
 
@@ -2483,9 +2702,10 @@ def tp_phase(dev, tmp: str, store: str) -> dict:
 
 
 def kernel_records(kernel, backward, flash_res, serving, binning, train, train_knobs,
-                   evaluation, infer, dp, tp_res) -> list:
+                   evaluation, infer, mvgen, dp, tp_res) -> list:
     """The kernels line: each kernel's launches on its paths (the blend
-    forward's on the serving, evaluate, data- and tensor-parallel paths,
+    forward's on the serving, evaluate, infer-dataset, mvgen, data- and
+    tensor-parallel paths,
     the stash forward's and backward's on the flagship, data- and
     tensor-parallel training paths, the replay backward's and the flash
     kernels' on the flash training, evaluate and tensor-parallel paths),
@@ -2503,7 +2723,8 @@ def kernel_records(kernel, backward, flash_res, serving, binning, train, train_k
     return [
         rec("blend_fwd", "blend_fwd.cu", pallas + ":398",
             serving["launches"]["blend_fwd"] + evaluation["launches"]["blend_fwd"]
-            + infer["launches"]["blend_fwd"] + dp["launches"]["blend_fwd"]
+            + infer["launches"]["blend_fwd"] + mvgen["launches"]["blend_fwd"]
+            + dp["launches"]["blend_fwd"]
             + tp_res["launches"]["blend_fwd"],
             max(r["max_abs_err"] for r in kernel.values()), kernel["eval"]["ms"],
             kernel["eval"]["plain_ms"], (kernel["eval"]["bound_ms"], kernel["eval"]["bound_by"])),
@@ -2523,7 +2744,8 @@ def kernel_records(kernel, backward, flash_res, serving, binning, train, train_k
             bwd["bwd_plain_ms"], bwd["replay_bound"]),
         rec("flash_fwd", "flash_fwd.cu", "lara_tpu/ops/flash.py:78",
             train_knobs["launches"]["flash_fwd"] + evaluation["launches"]["flash_fwd"]
-            + infer["launches"]["flash_fwd"] + tp_res["launches"]["flash_fwd"],
+            + infer["launches"]["flash_fwd"] + mvgen["launches"]["flash_fwd"]
+            + tp_res["launches"]["flash_fwd"],
             max(r["max_abs_err"] for r in flash_res.values()), fl["fwd_ms"],
             fl["fwd_plain_ms"], fl["fwd_bound"], fl["fwd_library_ms"]),
         rec("flash_bwd", "flash_bwd.cu", "lara_tpu/ops/flash.py:78",
@@ -2588,27 +2810,40 @@ def main() -> int:
         torch.cuda.empty_cache()
         evaluation = phase("evaluate (checkpoint at 256², then serving at 512²)",
                            evaluate_phase, dev, tmp, trainer)
-        torch.cuda.empty_cache()
-        dp = phase("data parallel (world size 1, torchrun, 2 ranks, evaluate)", dp_phase,
-                   dev, tmp, trainer["store"])
-        torch.cuda.empty_cache()
-        tp_res = phase("tensor parallel (dp=1×tp=2: f32 against tp=1, flagship 512², CLI)",
-                       tp_phase, dev, tmp, trainer["store"])
+        mesh = start_mesh_render(evaluation["obj"], os.path.join(tmp, "turntable.mp4"))
+        try:
+            torch.cuda.empty_cache()
+            dp = phase("data parallel (world size 1, torchrun, 2 ranks, evaluate)", dp_phase,
+                       dev, tmp, trainer["store"])
+            torch.cuda.empty_cache()
+            tp_res = phase("tensor parallel (dp=1×tp=2: f32 against tp=1, flagship 512², CLI)",
+                           tp_phase, dev, tmp, trainer["store"])
+            phase("mesh turntable (started after the evaluate phase)", finish_mesh_render,
+                  mesh, smi)
+        finally:
+            if mesh["proc"].poll() is None:
+                mesh["proc"].kill()
+                mesh["proc"].wait()
     print("[evaluate] launches on the evaluate paths: "
           + json.dumps({k: v for k, v in evaluation["launches"].items() if v}))
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="lara_infer_") as tmp:
         infer = phase("infer datasets (GSO, converter, instant3d, mipnerf360)",
                       infer_datasets_phase, dev, tmp, smi)
+        torch.cuda.empty_cache()
+        mvgen = phase("single image → 3D (mvgen: zero123plus-v1.1 through evaluate, v1.2, "
+                      "sv3d)", mvgen_phase, dev, tmp, smi)
     print("[infer] launches on the infer-dataset paths: "
           + json.dumps({k: v for k, v in infer["launches"].items() if v}))
 
+    print("[mvgen] launches on the mvgen paths: "
+          + json.dumps({k: v for k, v in mvgen["launches"].items() if v}))
     print("[dp] launches on the data-parallel paths: "
           + json.dumps({k: v for k, v in dp["launches"].items() if v}))
     print("[tp] launches on the tensor-parallel paths: "
           + json.dumps({k: v for k, v in tp_res["launches"].items() if v}))
     records = kernel_records(kernel, backward, flash_res, serving, binning, train, train_knobs,
-                             evaluation, infer, dp, tp_res)
+                             evaluation, infer, mvgen, dp, tp_res)
     for r in records:
         if r["launches"] <= 0:
             raise AssertionError(f"{r['name']} was not launched on its path")

@@ -6,6 +6,7 @@ from lara_tpu_torch.data.gso import GSODataset
 from lara_tpu_torch.data.instant3d import Instant3DDataset
 from lara_tpu_torch.data.loader import DataLoader, device_prefetch
 from lara_tpu_torch.data.mipnerf import MipNeRF360Dataset
+from lara_tpu_torch.data.mvgen import MVGenDataset
 from lara_tpu_torch.data.synthetic import SyntheticDataset, write_synthetic_store
 
 # the reference's spelling "gobjeverse" and the corrected one
@@ -15,22 +16,19 @@ dataset_dict = {
     "GSO": GSODataset,
     "instant3d": Instant3DDataset,
     "mipnerf360": MipNeRF360Dataset,
+    "mvgen": MVGenDataset,
     "synthetic": SyntheticDataset,
 }
 
 
 def get_dataset(name: str):
     """The dataset class registered as `name`."""
-    if name == "mvgen":
-        raise KeyError("dataset 'mvgen' is not ported to lara_tpu_torch: it samples its "
-                       "views from a multi-view diffusion model whose weights the port "
-                       "does not load (ROADMAP.md A.7)")
     if name not in dataset_dict:
-        raise KeyError(f"dataset {name!r} is not ported to lara_tpu_torch yet (ported: "
-                       f"{sorted(dataset_dict)}; ROADMAP.md lists the rest)")
+        raise KeyError(f"unknown dataset {name!r}; lara_tpu_torch has {sorted(dataset_dict)}, "
+                       "every dataset of the JAX package")
     return dataset_dict[name]
 
 
 __all__ = ["dataset_dict", "get_dataset", "DataLoader", "device_prefetch",
            "GObjaverseDataset", "GSODataset", "Instant3DDataset", "MipNeRF360Dataset",
-           "SyntheticDataset", "write_synthetic_store"]
+           "MVGenDataset", "SyntheticDataset", "write_synthetic_store"]

@@ -4,7 +4,10 @@ store (`data/gobjverse.py:NpyStore`) so that no HDF5 library is needed.
 
 `write_synthetic_store` draws from `np.random.default_rng(seed)` in the
 order `lara_tpu/data/synthetic.py:write_synthetic_h5` does, so one seed
-gives the same scenes, bit for bit, in either format."""
+gives the same scenes, bit for bit, in either format. The writers of the
+evaluation layouts (GSO, instant3d, LLFF) and the stand-in generators of
+the mvgen front end (`fake_zero123plus_pipeline`, `sphere_mvgen_pipeline`)
+follow."""
 
 from __future__ import annotations
 
@@ -18,6 +21,8 @@ from lara_tpu_torch.config import DatasetConfig
 from lara_tpu_torch.data.gobjverse import GObjaverseDataset
 from lara_tpu_torch.data.gso import B2C
 from lara_tpu_torch.data.image_io import encode_png, write_pfm
+from lara_tpu_torch.data.mvgen import RIGS, SV3D_AZIMUTHS, fxfycxcy_to_pixel_ixt, \
+    generate_input_camera
 from lara_tpu_torch.utils.camera import build_rays_np, fov_to_ixt
 
 
@@ -274,3 +279,81 @@ def write_llff_folder(root: str, n_views: int = 16, size=(512, 512), seed: int =
 
     _in_threads(view, jobs)
     return root
+
+
+# ------------------------------------- stand-in generators for mvgen
+
+
+def fake_zero123plus_pipeline(image: np.ndarray) -> np.ndarray:
+    """The procedural zero123plus stand-in of the JAX package's tests
+    (tests/test_datasets.py:112), same contract and values: a 3×2 grid
+    [288, 192, 3] in [0, 1] of 96² tiles, each a saturated disc on the
+    model's gray background whose position and hue follow the tile index
+    and whose radius follows the conditioning image's mean."""
+    h = w = 96
+    mean = float(np.mean(image))
+    tiles = []
+    for v in range(6):
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+        cx = w / 2 + 10 * np.cos(v * np.pi / 3)
+        cy = h / 2 + 10 * np.sin(v * np.pi / 3)
+        r = np.hypot(xx - cx, yy - cy)
+        inside = (r < 16 + 12 * mean).astype(np.float32)[..., None]
+        color = np.array([0.95 if (v + 1) & (1 << c) else 0.05
+                          for c in range(3)], np.float32)
+        tiles.append(inside * color + (1 - inside) * 0.5)
+    rows = [np.concatenate(tiles[i * 2:(i + 1) * 2], axis=1) for i in range(3)]
+    return np.concatenate(rows, axis=0).astype(np.float32)
+
+
+# saturated albedos: far from the gray and white backgrounds at any shade
+_PALETTE = np.array([[0.9, 0.15, 0.1], [0.1, 0.8, 0.2], [0.15, 0.3, 0.9],
+                     [0.9, 0.75, 0.1], [0.75, 0.1, 0.85], [0.1, 0.75, 0.8]], np.float32)
+
+
+def sphere_mvgen_pipeline(backend: str, size: int | None = None):
+    """A generator backend that renders one sphere scene from the backend's
+    own camera poses, so that its views agree across viewpoints: for
+    zero123plus a 3×2 grid of `size`² tiles (default 320) on gray 0.5 at
+    the model's six poses (the rig's elevations alternating, yaw 225 + 30,
+    90, ..., 330; tiles 0, 2, 4, 5 are `RIGS[backend]`'s poses), for sv3d
+    21 frames of `size`² (default 576) on white at elevation 20, yaw 225 +
+    `SV3D_AZIMUTHS`. Radius 2.7 and the rig's fov throughout. The scene (a
+    central sphere of radius 0.35 and three smaller ones 0.4 from the
+    origin, within 0.6 of it: in view of every rig, and within ±0.35 of
+    the canonical volume after `build_mvgen_batch`'s 1/1.7) is drawn from
+    seed 0; the central sphere's colour
+    follows the conditioning image's mean."""
+    radius, poses, fov = RIGS[backend]
+    if backend.startswith("zero123plus"):
+        size = size or 320
+        hi, lo = poses[0][0], poses[3][0]
+        poses = [(hi if v % 2 == 0 else lo, 225 + 30 + 60 * v) for v in range(6)]
+        bg = 0.5
+    else:
+        size = size or 576
+        poses = [(20, 225 + a) for a in SV3D_AZIMUTHS]
+        bg = 1.0
+    c2ws, fxfycxcy = generate_input_camera(radius, poses, fov=fov)
+    ixt = fxfycxcy_to_pixel_ixt(fxfycxcy, size, size)
+    rng = np.random.default_rng(0)
+    dirs = rng.normal(size=(3, 3))
+    centers = 0.4 * dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)
+    others = [(c.astype(np.float32), float(rng.uniform(0.12, 0.2)),
+               _PALETTE[rng.integers(len(_PALETTE))]) for c in centers]
+
+    def run(image: np.ndarray) -> np.ndarray:
+        hue = int(float(np.mean(image)) * 6 * 255) % len(_PALETTE)
+        spheres = [(np.zeros(3, np.float32), 0.35, _PALETTE[hue])] + others
+        views = [None] * len(c2ws)
+
+        def view(i):
+            rgba = render_spheres(c2ws[i], ixt, size, size, spheres)[0].astype(np.float32) / 255
+            views[i] = rgba[..., :3] * rgba[..., 3:] + bg * (1 - rgba[..., 3:])
+
+        _in_threads(view, [(i,) for i in range(len(c2ws))])
+        if backend.startswith("zero123plus"):
+            return np.concatenate([np.concatenate(views[i:i + 2], 1) for i in (0, 2, 4)], 0)
+        return np.stack(views)
+
+    return run

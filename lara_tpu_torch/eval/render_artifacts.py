@@ -77,8 +77,14 @@ def render_video(path: str, gauss, cfg: Config, transform_mats,
                           fov=sample_fov if name in ("mipnerf360", "mipnerf") else None,
                           c2ws=c2ws, near_fars=near_fars)
     frames = _render_frames(cams, gauss, cfg, img_size)
-    rgb = [(np.clip(f["image"], 0, 1) * 255).astype(np.uint8) for f in frames]
+    return write_video(path, [(np.clip(f["image"], 0, 1) * 255).astype(np.uint8)
+                              for f in frames], fps)
 
+
+def write_video(path: str, rgb: List[np.ndarray], fps: int) -> str:
+    """uint8 RGB frames → the mp4 `path` where cv2 imports and opens a
+    writer, else `<path without extension>/frame_%04d.png`. Returns what
+    was written."""
     try:
         import cv2
     except ImportError:

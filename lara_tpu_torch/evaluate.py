@@ -78,14 +78,18 @@ def main(argv: Optional[List[str]] = None, dtype: torch.dtype = torch.bfloat16) 
         return _evaluate(cfg, device, dtype)
 
 
-def _evaluate(cfg, device: torch.device, dtype: torch.dtype) -> dict:
+def _evaluate(cfg, device: torch.device, dtype: torch.dtype, dataset=None) -> dict:
+    """`main` after the command line: `dataset` (default: `infer_dataset`'s,
+    built from `cfg`) is the dataset evaluated, e.g. an `MVGenDataset` with
+    its generator injected."""
     ds_cfg = cfg.infer_dataset
     bs = ds_cfg.batch_size
     # scenes are independent: a batch of B scenes is split over n_dp ranks,
     # the largest divisor of B up to the world size (evaluate.py:63-72)
     n_dp = max(d for d in range(1, world_size() + 1) if bs % d == 0)
     r = rank()
-    dataset = get_dataset(ds_cfg.dataset_name)(ds_cfg)
+    if dataset is None:
+        dataset = get_dataset(ds_cfg.dataset_name)(ds_cfg)
     net = LaRaNet(cfg, dtype=dtype, device=device)
     if cfg.infer.ckpt_path:
         net.load_state_dict(restore_params(cfg.infer.ckpt_path), strict=True)

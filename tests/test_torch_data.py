@@ -25,17 +25,20 @@ import torch
 import lara_tpu.utils.camera as jcam
 from lara_tpu.config import DatasetConfig as JaxDatasetConfig
 from lara_tpu.data import DataLoader as JaxDataLoader
+from lara_tpu.data import dataset_dict as jax_dataset_dict
 from lara_tpu.data import native
 from lara_tpu.data.synthetic import SyntheticDataset as JaxSyntheticDataset
 from lara_tpu.data.synthetic import write_synthetic_h5
 from lara_tpu.eval.vis import vis_images as jax_vis_images
 from lara_tpu_torch.config import DatasetConfig
-from lara_tpu_torch.data import (DataLoader, device_prefetch, get_dataset,
+from lara_tpu_torch.data import (DataLoader, MVGenDataset, dataset_dict, device_prefetch,
+                                 get_dataset,
                                  write_synthetic_store)
 from lara_tpu_torch.data import decode
-from lara_tpu_torch.data.gobjverse import H5Store, NpyStore, open_store
+from lara_tpu_torch.data.gobjverse import GObjaverseDataset, H5Store, NpyStore, open_store
 from lara_tpu_torch.data.synthetic import SyntheticDataset
 from lara_tpu_torch.eval.vis import png_bytes, vis_images
+from lara_tpu_torch.tools import h5_to_store
 from lara_tpu_torch.utils import camera as tcam
 
 SAMPLE_ATOL = 1e-6
@@ -166,6 +169,60 @@ def test_samples_match_jax(stores, split):
             > {1.0}
 
 
+@pytest.mark.parametrize("splits", [False, True])
+def test_h5_to_store(stores, tmp_path, splits):
+    """`python -m lara_tpu_torch.tools.h5_to_store` on the JAX package's
+    shard (and on a copy with a `splits/test` list of variable-length
+    strings): every array reads back as `H5Store` reads it, bit for bit,
+    and `GObjaverseDataset` serves the same samples from either store, on
+    the eval split and on the train split with one seeded generator each."""
+    import shutil
+
+    import h5py
+
+    h5 = stores[0]
+    if splits:
+        h5 = str(shutil.copy(h5, tmp_path / "with_splits.h5"))
+        with h5py.File(h5, "a") as f:
+            f.create_dataset("splits/test", data=["scene_0007", "scene_0003"],
+                             dtype=h5py.string_dtype())
+    out = str(tmp_path / "store")
+    h5_to_store.main([h5, out])
+    src, dst = H5Store(h5), NpyStore(out)
+    assert isinstance(open_store(out), NpyStore) and dst.scenes() == src.scenes()
+    names = []
+    with h5py.File(h5, "r") as f:
+        f.visititems(lambda name, obj: names.append(name)
+                     if isinstance(obj, h5py.Dataset) else None)
+    assert len(names) == N_SCENES * (4 * 12 + sum(range(2, 7))) + splits
+    for name in names:
+        scene, key = name.split("/", 1)
+        want, got = src.read(scene, key), dst.read(scene, key)
+        if want.dtype.kind == "O":                 # strings: fixed-length bytes
+            assert got.dtype.kind == "S"
+            want, got = want.astype(str), got.astype(str)
+        assert got.dtype == want.dtype and got.shape == want.shape, name
+        np.testing.assert_array_equal(got, want, err_msg=name)
+    with pytest.raises(FileExistsError):
+        h5_to_store.convert(h5, out)
+
+    for split in ("test", "train"):
+        cfg = DatasetConfig(dataset_name="gobjaverse", data_root=h5, split=split,
+                            img_size=(64, 64), n_group=2, n_scenes=N_SCENES)
+        a = GObjaverseDataset(cfg, rng=np.random.default_rng(3))
+        b = GObjaverseDataset(dataclasses.replace(cfg, data_root=out),
+                              rng=np.random.default_rng(3))
+        assert list(b.scenes_name) == list(a.scenes_name)
+        if splits:
+            assert list(a.scenes_name) == ["scene_0007", "scene_0003"]
+        for i in range(2):
+            want, got = a[i], b[i]
+            assert got["meta"] == want["meta"] and set(got) == set(want)
+            for k in want:
+                if k != "meta":
+                    np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
 def test_dataset_writes_its_store_on_first_use(tmp_path):
     cfg = DatasetConfig(dataset_name="synthetic", data_root=str(tmp_path / "a" / "store"),
                         img_size=(32, 32), n_group=2, n_scenes=2)
@@ -265,9 +322,11 @@ def test_device_prefetch_order(stores):
 def test_registry():
     for name in ("synthetic", "gobjeverse", "gobjaverse", "GSO", "instant3d", "mipnerf360"):
         assert get_dataset(name) is not None
-    with pytest.raises(KeyError, match="ROADMAP.md A.7"):
-        get_dataset("mvgen")
-    with pytest.raises(KeyError, match="ROADMAP.md"):
+    # every name of the JAX package's registry, mvgen (the weight-free
+    # front end over an injected generator) included
+    assert set(dataset_dict) == set(jax_dataset_dict)
+    assert get_dataset("mvgen") is MVGenDataset
+    with pytest.raises(KeyError, match="unknown dataset 'no_such_dataset'"):
         get_dataset("no_such_dataset")
 
 

@@ -57,7 +57,8 @@ def test_every_module_imports(probe):
                 "lara_tpu_torch.data.mipnerf", "lara_tpu_torch.models.convert",
                 "lara_tpu_torch.tools.convert_checkpoint",
                 "lara_tpu_torch.parallel.distributed", "lara_tpu_torch.parallel.mesh",
-                "lara_tpu_torch.parallel.tp"}
+                "lara_tpu_torch.parallel.tp", "lara_tpu_torch.data.mvgen",
+                "lara_tpu_torch.tools.mesh_render", "lara_tpu_torch.tools.h5_to_store"}
     assert expected <= set(probe["modules"])
 
 

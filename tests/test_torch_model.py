@@ -20,7 +20,7 @@ import torch
 
 from lara_tpu.models import LaRaNet as JaxLaRaNet
 from lara_tpu.models.convert import convert_network_state_dict
-from lara_tpu_torch.config import config_from_dict
+from lara_tpu_torch.config import DatasetConfig, config_from_dict
 from lara_tpu_torch.models import LaRaNet
 from lara_tpu_torch.models.convert import params_from_jax
 from lara_tpu_torch.ops.rasterizer import cuda_blend
@@ -118,9 +118,31 @@ def test_decoder_parity(nets):
 
 def test_serving_slice_matches_jax(nets, pallas_interpret):  # noqa: F811
     """LaRaNet.apply(with_fine=True, train=False) vs make_forward."""
+    _assert_slice_matches_jax(nets, synthetic_batch(B=1))
+
+
+def test_mvgen_slice_matches_jax(nets, pallas_interpret):  # noqa: F811
+    """Single image → 3D: the procedural zero123plus fixture's grid through
+    `MVGenDataset` (slice, matte, INTER_AREA resize, the v1.1 rig) and
+    `collate`, at the test config's 64², then the serving slice on both
+    sides (the batch has the shapes of `synthetic_batch(B=1)`)."""
+    from lara_tpu_torch.data import MVGenDataset
+    from lara_tpu_torch.data.loader import collate
+    from lara_tpu_torch.data.synthetic import fake_zero123plus_pipeline
+
+    image = np.random.default_rng(4).uniform(size=(48, 40, 3)).astype(np.float32)
+    ds = MVGenDataset(DatasetConfig(img_size=(64, 64)),
+                      prompts=["a disc"], pipeline=fake_zero123plus_pipeline,
+                      text_to_image=lambda p: image)
+    batch = collate([ds[0]])
+    assert batch["tar_rgb"].shape == (1, 4, 64, 64, 3)
+    _assert_slice_matches_jax(nets, {k: v for k, v in batch.items() if k != "meta"})
+
+
+def _assert_slice_matches_jax(nets, batch):
     cfg, jnet, params, tnet = nets
-    batch = synthetic_batch(B=1)
-    want = jnet.apply(params, batch, with_fine=True, train=False, return_buffer=True)
+    want = jnet.apply(params, jax.tree.map(jnp.asarray, batch), with_fine=True, train=False,
+                      return_buffer=True)
     fwd = make_forward(tnet, with_fine=True, return_buffer=True)
     before = dict(cuda_blend.LAUNCHES)
     got = fwd({k: torch.from_numpy(np.array(v)) for k, v in batch.items()})

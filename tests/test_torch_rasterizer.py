@@ -4,6 +4,7 @@ preprocess, whose inverse-scale axes are O(100)), bin_view bit-identical,
 and whole renders against `rasterize_pallas` (Pallas interpret mode) at the
 blend tolerances of tests/test_torch_blend.py."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,21 +13,23 @@ import torch
 from lara_tpu.ops.rasterizer.api import rasterize_and_bin as jax_rasterize_and_bin
 from lara_tpu.ops.rasterizer.api import rasterize_rebind as jax_rasterize_rebind
 from lara_tpu.ops.rasterizer.preprocess import preprocess_surfels as jax_preprocess
+from lara_tpu.ops.rasterizer.reference import rasterize_reference
 from lara_tpu.ops.rasterizer.tiled import bin_view as jax_bin_view
 from lara_tpu.utils import camera as jcam
 from lara_tpu.utils.quat import quat_to_rotmat as jax_quat_to_rotmat
 from lara_tpu.utils.sh import eval_sh_color as jax_eval_sh_color
 from lara_tpu.utils.sh import rsh_cart_3 as jax_rsh_cart_3
 from lara_tpu_torch.ops.gather import window_gather
-from lara_tpu_torch.ops.rasterizer import rasterize_and_bin, rasterize_rebind
+from lara_tpu_torch.ops.rasterizer import rasterize, rasterize_and_bin, rasterize_rebind
 from lara_tpu_torch.ops.rasterizer.preprocess import preprocess_surfels
 from lara_tpu_torch.ops.rasterizer.tiled import bin_view
 from lara_tpu_torch.ops.rasterizer.types import ProjectedSurfels
 from lara_tpu_torch.utils import camera as tcam
 from lara_tpu_torch.utils.quat import quat_to_rotmat
 from lara_tpu_torch.utils.sh import eval_sh_color, rsh_cart_3
-from tests.test_rasterizer import front_camera, make_cfg
-from tests.test_torch_blend import pallas_interpret, scene_np, torch_cfg  # noqa: F401
+from tests.test_rasterizer import dc_shs, front_camera, make_cfg, random_scene
+from tests.test_torch_blend import (one_torch_thread, pallas_interpret,  # noqa: F401
+                                    scene_np, torch_cfg)
 
 
 def t(a):
@@ -156,3 +159,197 @@ def test_window_gather_invalid_slots_send_no_gradient():
     assert not rows[~valid].any()
     (g,) = torch.autograd.grad(rows, packed, torch.ones_like(rows))
     np.testing.assert_array_equal(g.sum(-1).numpy(), [13.0, 0.0, 0.0, 13.0, 13.0, 13.0])
+
+
+# ------------------------------------------------------------------------
+# The analytic battery of tests/test_rasterizer.py, with the port's
+# `rasterize` (CPU: the blend's plain version, ordinary autograd) held
+# against the JAX package's per-pixel `rasterize_reference` and against the
+# analytic values. Bars: the JAX battery's (analytic 1e-3 / 2e-2 / 5e-3;
+# the reference at its tiled backend's 1e-4 on image, alpha, normal and
+# distortion and 1e-3 on the depths; gradients 5e-4; finite differences
+# 5e-3 relative at eps 1e-3).
+
+
+def _identity_quats(n):
+    return np.tile(np.array([[1.0, 0.0, 0.0, 0.0]], np.float32), (n, 1))
+
+
+def _dc_shs(rgb, n):
+    return np.asarray(dc_shs(rgb, n))
+
+
+def _analytic_scene(name):
+    """(means, shs, opacities, scales, quats, bg) of the battery's analytic
+    scenes (tests/test_rasterizer.py:54, :85, :123)."""
+    if name == "single":            # one white surfel facing the camera
+        return (np.zeros((1, 3), np.float32), _dc_shs([1.0, 1.0, 1.0], 1),
+                np.array([0.8], np.float32), np.full((1, 2), 0.05, np.float32),
+                _identity_quats(1), np.zeros(3, np.float32))
+    if name == "two":               # red in front of blue on the optical axis
+        return (np.array([[0.0, 0.0, -0.2], [0.0, 0.0, 0.2]], np.float32),
+                np.concatenate([_dc_shs([1, 0, 0], 1), _dc_shs([0, 0, 1], 1)]),
+                np.array([0.6, 0.9], np.float32), np.full((2, 2), 0.08, np.float32),
+                _identity_quats(2), np.zeros(3, np.float32))
+    s = np.sin(np.pi / 8), np.cos(np.pi / 8)   # "tilted": 45° about y
+    return (np.zeros((1, 3), np.float32), _dc_shs([1, 1, 1], 1),
+            np.array([0.95], np.float32), np.full((1, 2), 0.1, np.float32),
+            np.array([[s[1], 0.0, s[0], 0.0]], np.float32), np.zeros(3, np.float32))
+
+
+def _port_render(scene, cfg, cam=None):
+    cam = cam or front_camera()
+    return rasterize(*(t(a) for a in scene[:5]), torch_camera(cam), t(scene[5]),
+                     torch_cfg(cfg))
+
+
+def _assert_matches_reference(got, scene, cfg):
+    want = rasterize_reference(*(jnp.asarray(a) for a in scene[:5]), front_camera(),
+                               jnp.asarray(scene[5]), cfg)
+    for name, atol in (("image", 1e-4), ("alpha", 1e-4), ("normal", 1e-4),
+                       ("distortion", 1e-4), ("depth_expected", 1e-3),
+                       ("depth_median", 1e-3)):
+        np.testing.assert_allclose(getattr(got, name).detach().numpy(),
+                                   np.asarray(getattr(want, name)), atol=atol, err_msg=name)
+
+
+@pytest.mark.parametrize("name", ["single", "two", "tilted"])
+def test_analytic_scenes(name, one_torch_thread):  # noqa: F811
+    """tests/test_rasterizer.py:54 (one surfel: alpha, colour, depth and
+    normal at the center pixel), :85 (front-to-back compositing, median
+    depth at the front surfel), :123 (a 45°-tilted surfel: depth monotone
+    across the splat); each render also against the reference."""
+    cfg = make_cfg()
+    scene = _analytic_scene(name)
+    out = _port_render(scene, cfg)
+    _assert_matches_reference(out, scene, cfg)
+    img, alpha = out.image.numpy(), out.alpha.numpy()
+    if name == "single":
+        sigma_px = 0.05 * (32.0 / np.tan(0.4)) / 2.0
+        expected = 0.8 * np.exp(-0.5 * (0.25 + 0.25) / sigma_px ** 2)
+        assert abs(alpha[32, 32] - expected) < 1e-3
+        np.testing.assert_allclose(img[32, 32], expected, atol=1e-3)
+        assert abs(out.depth_expected[32, 32].item() - 2.0) < 1e-3
+        n = out.normal[32, 32].numpy() / max(alpha[32, 32], 1e-6)
+        np.testing.assert_allclose(n, [0, 0, -1], atol=2e-2)
+        assert alpha[2, 2] < 1e-3
+    elif name == "two":
+        np.testing.assert_allclose(img[32, 32], [0.6, 0.0, 0.36], atol=2e-2)
+        assert abs(alpha[32, 32] - 0.96) < 2e-2
+        assert abs(out.depth_median[32, 32].item() - 1.8) < 5e-3
+    else:
+        cols = np.where(alpha[32] > 0.5)[0]
+        assert len(cols) > 4
+        dd = out.depth_expected[32].numpy()[cols]
+        assert dd[-1] != dd[0]
+        assert np.all(np.diff(dd) > 0) or np.all(np.diff(dd) < 0)
+
+
+def _jax_scene(seed, n):
+    return tuple(np.asarray(a) for a in random_scene(jax.random.PRNGKey(seed), n))
+
+
+def test_gradients_match_reference_and_fd(one_torch_thread):  # noqa: F811
+    """tests/test_rasterizer.py:143: the port's autograd gradients of
+    mean((image - target)²) + 0.1·mean(distortion) against jax.grad of the
+    reference, and a central finite difference along a random direction."""
+    cfg = make_cfg(tile_budget=512)
+    means, shs, _, scales, quats = _jax_scene(3, 50)
+    op_raw = np.asarray(jnp.clip(jax.random.normal(jax.random.PRNGKey(4), (50,)), -1.0, 1.0))
+    params = (means, shs, op_raw, np.log(scales), quats)
+    bg = np.full((3,), 0.5, np.float32)
+    tgt = np.asarray(jax.random.uniform(jax.random.PRNGKey(5), (64, 64, 3)))
+    cam = front_camera()
+
+    def jax_loss(p):
+        m, s, o, sc, q = p
+        out = rasterize_reference(m, s, jax.nn.sigmoid(o), jnp.exp(sc), q, cam,
+                                  jnp.asarray(bg), cfg)
+        return jnp.mean((out.image - tgt) ** 2) + 0.1 * jnp.mean(out.distortion)
+
+    def loss(p):
+        m, s, o, sc, q = p
+        out = rasterize(m, s, torch.sigmoid(o), torch.exp(sc), q, torch_camera(cam), t(bg),
+                        torch_cfg(cfg))
+        return torch.mean((out.image - t(tgt)) ** 2) + 0.1 * torch.mean(out.distortion)
+
+    g_ref = jax.grad(jax_loss)(tuple(jnp.asarray(a) for a in params))
+    tp = [t(a).requires_grad_(True) for a in params]
+    loss(tp).backward()
+    for a, b, name in zip(g_ref, tp, ["means", "shs", "op", "scales", "quats"]):
+        np.testing.assert_allclose(b.grad.numpy(), np.asarray(a), atol=5e-4, err_msg=name)
+
+    key = jax.random.PRNGKey(7)
+    vec = [np.asarray(jax.random.normal(key, a.shape)) for a in params]
+    eps = 1e-3
+    with torch.no_grad():
+        plus = loss([t(a + eps * v) for a, v in zip(params, vec)])
+        minus = loss([t(a - eps * v) for a, v in zip(params, vec)])
+    fd = float((plus - minus) / (2 * eps))
+    ad = sum(float(torch.sum(p.grad * t(v))) for p, v in zip(tp, vec))
+    assert abs(fd - ad) < 5e-3 * max(1.0, abs(fd))
+
+
+@pytest.mark.parametrize("budget", ["tile", "visible"])
+def test_budget_overflow_keeps_nearest(budget, one_torch_thread):  # noqa: F811
+    """tests/test_rasterizer.py:203: an opaque stack along the axis with a
+    tile budget of 16 renders as with 512 wherever the first 16 entries
+    saturate; :261: a visible budget of 1 renders the nearer of two
+    surfels alone (both against the reference of what they keep)."""
+    if budget == "tile":
+        n = 64
+        scene = (np.stack([np.zeros(n), np.zeros(n), np.linspace(-0.3, 0.3, n)], -1)
+                 .astype(np.float32), _dc_shs([0.7, 0.2, 0.4], n),
+                 np.full((n,), 0.95, np.float32), np.full((n, 2), 0.05, np.float32),
+                 _identity_quats(n), np.zeros(3, np.float32))
+        small = _port_render(scene, make_cfg(tile_budget=16, pallas_chunk=16))
+        big_cfg = make_cfg(tile_budget=512)
+        big = _port_render(scene, big_cfg)
+        _assert_matches_reference(big, scene, big_cfg)
+        core = small.alpha.numpy() > 0.999
+        assert core.sum() > 20
+        diff = np.abs(small.image.numpy() - big.image.numpy()).max(-1)
+        assert diff[core].max() < 1e-3
+    else:
+        scene = (np.array([[0.0, 0.0, -0.2], [0.0, 0.0, 0.3]], np.float32),
+                 _dc_shs([0.9, 0.2, 0.4], 2), np.array([0.7, 0.9], np.float32),
+                 np.full((2, 2), 0.05, np.float32), _identity_quats(2),
+                 np.zeros(3, np.float32))
+        out = _port_render(scene, make_cfg(visible_budget=1))
+        near = tuple(a[:1] for a in scene[:5]) + (scene[5],)
+        out_near = _port_render(near, make_cfg())
+        np.testing.assert_allclose(out.image.numpy(), out_near.image.numpy(), atol=1e-6)
+        _assert_matches_reference(out, near, make_cfg())
+
+
+def test_visible_budget_noop_when_generous(one_torch_thread):  # noqa: F811
+    """tests/test_rasterizer.py:239: a visible budget above the visible
+    count changes neither the render nor the gradients."""
+    means, shs, op, scales, quats = _jax_scene(21, 200)
+    bg = t(np.full((3,), 0.1, np.float32))
+    cam = torch_camera(front_camera())
+
+    def run(cfg):
+        m = t(means).requires_grad_(True)
+        o = rasterize(m, t(shs), t(op), t(scales), t(quats), cam, bg, torch_cfg(cfg))
+        (torch.mean(o.image ** 2) + torch.mean(o.distortion)).backward()
+        return o.image.detach().numpy(), m.grad.numpy()
+
+    img_a, g_a = run(make_cfg(tile_budget=256))
+    img_b, g_b = run(make_cfg(tile_budget=256, visible_budget=512))
+    np.testing.assert_allclose(img_b, img_a, atol=1e-6)
+    np.testing.assert_allclose(g_b, g_a, atol=1e-6)
+
+
+def test_big_splat_truncation_bound(one_torch_thread):  # noqa: F811
+    """tests/test_rasterizer.py:410: splats far wider than the dup×dup
+    tile ring lose only their tails against the reference (PSNR > 20 dB)."""
+    means, shs, op, _, quats = _jax_scene(3, 300)
+    scene = (means, shs, op, np.full((300, 2), 0.25, np.float32), quats,
+             np.ones(3, np.float32))
+    cfg = make_cfg(tile_budget=2048)
+    got = _port_render(scene, cfg).image.numpy()
+    want = np.asarray(rasterize_reference(*(jnp.asarray(a) for a in scene[:5]),
+                                          front_camera(), jnp.asarray(scene[5]), cfg).image)
+    psnr = -10 * np.log10(np.mean((got - want) ** 2) + 1e-12)
+    assert psnr > 20, f"big-splat truncation error too large: {psnr:.1f} dB"

@@ -59,6 +59,24 @@ each prints its seconds:
      default request's; (e) the binning profiler
      (`lara_tpu_torch.tools.profile_binning.run`) over 8 views, whose
      window-kernel launches are the kernel's count on its path;
+  7b. raster tools: (a) the kernels' path, with the stash and with the
+     replay backward, against the reference backend
+     (`ops/rasterizer/reference.py`: every surfel against every pixel, no
+     budgets) at 128² on a 2,000-surfel scene that nothing truncates (no
+     radius past the dup clamp, no tile over its budget): every output
+     within 2e-4 (the depths 1e-3), the gradients of mean(image) +
+     mean(distortion) within 5e-4 + 1e-3 |reference|
+     (tests/test_pallas.py:125-138); (b) the
+     binned renders of `lara_workload` at the train and eval budgets
+     against the reference at 128² (and, in `profile_rasterizer`, 512²):
+     their PSNR, not gated; (c)
+     each tool of `lara_tpu_torch/tools/` that ports a JAX raster tool
+     (`validate_fine_budget`, `sweep_eval_budgets`, `ab_dup`,
+     `sweep_chunk`, `ab_kernels`, `profile_rasterizer`, `profile_loss`,
+     `profile_input_pipeline` at 256² over 1 and 4 threads) once, at
+     reduced repetitions, each printing its JSON line; the top-M renders
+     at M at or above the census must equal the mask render bit for bit;
+     the blend launches of (c) count on the kernels line;
   8. training, reduced config (tests/test_model.py:tiny_config at 128², f32):
      one fine micro-step through the kernels and one through the plain
      versions give the same loss and gradients, by default and with
@@ -218,7 +236,7 @@ from lara_tpu_torch.models import LaRaNet
 from lara_tpu_torch.models import vit
 from lara_tpu_torch.ops import _build, flash
 from lara_tpu_torch.ops.gather import window_gather
-from lara_tpu_torch.ops.rasterizer import cuda_blend, cuda_windows
+from lara_tpu_torch.ops.rasterizer import cuda_blend, cuda_windows, rasterize
 from lara_tpu_torch.ops.rasterizer.preprocess import preprocess_surfels
 from lara_tpu_torch.ops.rasterizer.tiled import (_pack_tile_bounds, bin_view, slot_keys,
                                                  tile_ranges)
@@ -226,8 +244,10 @@ from lara_tpu_torch.ops.rasterizer.types import RasterizeConfig
 from lara_tpu_torch.ops.renderer import (opacity_activation, rotation_activation,
                                          scaling_activation)
 from lara_tpu_torch.parallel import tp
-from lara_tpu_torch.tools import profile_binning
-from lara_tpu_torch.tools.profile_binning import queued_ms
+from lara_tpu_torch.tools import (ab_dup, ab_kernels, profile_binning, profile_input_pipeline,
+                                  profile_loss, profile_rasterizer, sweep_chunk,
+                                  sweep_eval_budgets, validate_fine_budget)
+from lara_tpu_torch.tools.timing import production_config, psnr, queued_ms
 from lara_tpu_torch.tools.profile_flash import sdpa_ms
 from lara_tpu_torch.tools.workload import lara_workload
 from lara_tpu_torch.train.loss import compute_losses
@@ -1047,6 +1067,116 @@ def binning_phase(dev, serving: dict) -> dict:
     res["tool"] = profile_binning.run(views=8, trials=1, device=dev)
     res["tool_launches"] = launches()
     print(f"[binning] profile_binning.run(views=8, trials=1): launches {res['tool_launches']}")
+    return res
+
+
+# the CUDA path against the reference backend (tests/test_pallas.py:125-138):
+# values within 2e-4, the depths within 1e-3 (the blend bar of channels 4
+# and 5, ATOL above: where rounding flips an entry between its ray depth
+# and its center depth, the two differ and alpha does not), gradients
+# within 5e-4 + 1e-3 |reference| per element
+REF_SIZE, REF_GRAD_ATOL, REF_GRAD_RTOL = 128, 5e-4, 1e-3
+REF_ATOL = {"image": 2e-4, "alpha": 2e-4, "normal": 2e-4, "depth_expected": 1e-3,
+            "depth_median": 1e-3, "distortion": 2e-4}
+
+
+def reference_case(dev) -> dict:
+    """The kernels' path (stash and replay) against the reference backend at
+    128² on a scene nothing truncates: every output, and the gradients of
+    mean(image) + mean(distortion) to the five surfel tensors."""
+    # small splats in the view at 128²: no footprint reaches the dup clamp
+    # and no tile its budget of 512, so the binned path drops nothing
+    cam, scene = camera(dev), random_scene(2000, 14, dev, extent=0.4)
+    bg = torch.tensor([0.3, 0.5, 0.7], device=dev)
+
+    def render(cfg):
+        leaves = [p.detach().clone().requires_grad_(True) for p in scene]
+        out = rasterize(*leaves, cam, bg, cfg)
+        grads = torch.autograd.grad(torch.mean(out.image) + torch.mean(out.distortion), leaves)
+        return out, grads
+
+    res = {}
+    for mode, stash in (("stash", True), ("replay", False)):
+        cfg = RasterizeConfig(height=REF_SIZE, width=REF_SIZE, tile=16, dup=3, tile_budget=512,
+                              pallas_chunk=64, stash_carries=stash)
+        g, overflow = preprocess_surfels(*scene, cam, cfg, return_overflow=True)
+        _, binned = bin_view(g, cfg)
+        top = int(binned.counts.max())
+        if overflow.item() != 0.0 or top >= cfg.tile_budget:
+            raise AssertionError(f"the reference scene truncates: radius overflow "
+                                 f"{overflow.item()}, a tile of {top} entries")
+        got, g_got = render(cfg)
+        want, g_want = render(dataclasses.replace(cfg, backend="reference"))
+        err = {f: (getattr(got, f) - getattr(want, f)).abs().max().item() for f in REF_ATOL}
+        grad_err = [(a - b).abs().max().item() for a, b in zip(g_got, g_want)]
+        grad_ok = all(bool(((a - b).abs() <= REF_GRAD_ATOL + REF_GRAD_RTOL * b.abs()).all())
+                      for a, b in zip(g_got, g_want))
+        print(f"[raster tools] {mode} path against the reference at {REF_SIZE}², "
+              f"{int(g.valid.sum())} valid surfels, largest tile {top} of {cfg.tile_budget}, "
+              f"radius overflow 0: max |Δ| " + " ".join(f"{k} {v:.3e}" for k, v in err.items())
+              + "; gradients " + " ".join(f"{v:.3e}" for v in grad_err)
+              + f" (within {REF_GRAD_ATOL} + {REF_GRAD_RTOL}|ref|: {grad_ok})")
+        if any(err[f] > REF_ATOL[f] for f in err) or not grad_ok:
+            raise AssertionError(f"the {mode} path differs from the reference: {err}, "
+                                 f"gradients {grad_err}")
+        res[mode] = {"max_abs_err": max(err.values()), "grad_max_abs_err": max(grad_err)}
+    return res
+
+
+def truncation_case(dev) -> dict:
+    """PSNR of the binned renders (train and eval budgets) of `lara_workload`
+    against the reference at 128², not gated (`profile_rasterizer` reads
+    the same at 512²)."""
+    scene = workload_scene(dev)
+    cam, bg = camera(dev), torch.ones(3, device=dev)
+    with torch.no_grad():
+        sync(dev)
+        t0 = time.perf_counter()
+        ref = rasterize(*scene, cam, bg, RasterizeConfig(height=REF_SIZE, width=REF_SIZE,
+                                                         backend="reference")).image
+        sync(dev)
+        res = {"reference_s": time.perf_counter() - t0}
+        for name, train in (("train", True), ("eval", False)):
+            img = rasterize(*scene, cam, bg, production_config(REF_SIZE, train=train)).image
+            res[f"psnr_{name}"] = psnr(img, ref)
+    print(f"[raster tools] lara_workload at {REF_SIZE}²: the binned renders against the "
+          f"reference (one render {res['reference_s']:.3f} s): PSNR train "
+          f"{res['psnr_train']}, eval {res['psnr_eval']} dB")
+    return res
+
+
+def raster_tools_phase(dev) -> dict:
+    """The reference backend against the kernels' path, then every raster
+    validation and profiling tool once at reduced repetitions, their
+    launches counted."""
+    res = {"reference": reference_case(dev), "truncation": truncation_case(dev)}
+    reset_launches()
+    tools = {
+        "validate_fine_budget": lambda: validate_fine_budget.run(dev),
+        "sweep_eval_budgets": lambda: sweep_eval_budgets.run(dev, quick=True),
+        "ab_dup": lambda: ab_dup.run(dev, quick=True),
+        "sweep_chunk": lambda: sweep_chunk.run(dev, quick=True),
+        "ab_kernels": lambda: ab_kernels.run(dev, quick=True),
+        "profile_rasterizer": lambda: profile_rasterizer.run(dev, quick=True),
+        "profile_loss": lambda: profile_loss.run(dev, quick=True),
+        "profile_input_pipeline": lambda: profile_input_pipeline.run(dev, workers=(1, 4),
+                                                                     size=256),
+    }
+    res["tools"] = {}
+    for name, fn in tools.items():
+        t0 = time.perf_counter()
+        res["tools"][name] = fn()
+        print(json.dumps(res["tools"][name]))
+        print(f"[raster tools] {name}: {time.perf_counter() - t0:.2f} s")
+    res["launches"] = launches()
+    print(f"[raster tools] launches of the tools: "
+          + json.dumps({k: v for k, v in res["launches"].items() if v}))
+    fine = res["tools"]["validate_fine_budget"]
+    census = fine["census_op_gt_0.005"]
+    above = [m for m in fine["budgets"] if int(m) >= census]
+    if not above or not all(fine["budgets"][m]["identical"] for m in above):
+        raise AssertionError(f"top-M renders at M >= the census {census} differ from the "
+                             f"mask render: {fine['budgets']}")
     return res
 
 
@@ -2702,13 +2832,14 @@ def tp_phase(dev, tmp: str, store: str) -> dict:
 
 
 def kernel_records(kernel, backward, flash_res, serving, binning, train, train_knobs,
-                   evaluation, infer, mvgen, dp, tp_res) -> list:
+                   evaluation, infer, mvgen, dp, tp_res, raster) -> list:
     """The kernels line: each kernel's launches on its paths (the blend
     forward's on the serving, evaluate, infer-dataset, mvgen, data- and
     tensor-parallel paths,
     the stash forward's and backward's on the flagship, data- and
     tensor-parallel training paths, the replay backward's and the flash
-    kernels' on the flash training, evaluate and tensor-parallel paths),
+    kernels' on the flash training, evaluate and tensor-parallel paths;
+    the four blend kernels' also on the raster tools' paths),
     its largest error against the plain
     version, its time beside the plain version's, the library call's (flash)
     and its bound, at the path's shapes."""
@@ -2725,21 +2856,22 @@ def kernel_records(kernel, backward, flash_res, serving, binning, train, train_k
             serving["launches"]["blend_fwd"] + evaluation["launches"]["blend_fwd"]
             + infer["launches"]["blend_fwd"] + mvgen["launches"]["blend_fwd"]
             + dp["launches"]["blend_fwd"]
-            + tp_res["launches"]["blend_fwd"],
+            + tp_res["launches"]["blend_fwd"] + raster["launches"]["blend_fwd"],
             max(r["max_abs_err"] for r in kernel.values()), kernel["eval"]["ms"],
             kernel["eval"]["plain_ms"], (kernel["eval"]["bound_ms"], kernel["eval"]["bound_by"])),
         rec("blend_fwd_stash", "blend_fwd.cu", pallas + ":398",
             train["launches"]["blend_fwd_stash"] + dp["launches"]["blend_fwd_stash"]
-            + tp_res["launches"]["blend_fwd_stash"],
+            + tp_res["launches"]["blend_fwd_stash"] + raster["launches"]["blend_fwd_stash"],
             max(r["fwd_max_abs_err"] for r in backward.values()), bwd["fwd_stash_ms"],
             bwd["fwd_stash_plain_ms"], bwd["fwd_stash_bound"]),
         rec("blend_bwd", "blend_bwd.cu", pallas + ":457",
             train["launches"]["blend_bwd"] + dp["launches"]["blend_bwd"]
-            + tp_res["launches"]["blend_bwd"],
+            + tp_res["launches"]["blend_bwd"] + raster["launches"]["blend_bwd"],
             max(r["max_abs_err"] for r in backward.values()), bwd["bwd_ms"],
             bwd["bwd_plain_ms"], bwd["bwd_bound"]),
         rec("blend_bwd_replay", "blend_bwd.cu", pallas + ":432",
-            train_knobs["launches"]["blend_bwd_replay"] + tp_res["launches"]["blend_bwd_replay"],
+            train_knobs["launches"]["blend_bwd_replay"] + tp_res["launches"]["blend_bwd_replay"]
+            + raster["launches"]["blend_bwd_replay"],
             max(r["max_abs_err"] for r in backward.values()), bwd["replay_ms"],
             bwd["bwd_plain_ms"], bwd["replay_bound"]),
         rec("flash_fwd", "flash_fwd.cu", "lara_tpu/ops/flash.py:78",
@@ -2787,6 +2919,9 @@ def main() -> int:
     flash_res = phase("flash attention", flash_phase, dev)
     serving = phase("serving (default, then flash attention)", slice_phase, dev)
     binning = phase("binning (window kernel, bin modes, profiler)", binning_phase, dev, serving)
+    torch.cuda.empty_cache()
+    raster = phase("raster tools (reference backend, fine budget, sweeps, profilers)",
+                   raster_tools_phase, dev)
     torch.cuda.empty_cache()
     phase("train (reduced)", train_reduced_phase, dev, False)
     phase("train (reduced, flash + replay)", train_reduced_phase, dev, True)
@@ -2843,7 +2978,7 @@ def main() -> int:
     print("[tp] launches on the tensor-parallel paths: "
           + json.dumps({k: v for k, v in tp_res["launches"].items() if v}))
     records = kernel_records(kernel, backward, flash_res, serving, binning, train, train_knobs,
-                             evaluation, infer, mvgen, dp, tp_res)
+                             evaluation, infer, mvgen, dp, tp_res, raster)
     for r in records:
         if r["launches"] <= 0:
             raise AssertionError(f"{r['name']} was not launched on its path")

@@ -64,7 +64,9 @@ class ModelConfig:
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     """Rasterizer knobs (no reference equivalent — CUDA had them compiled in).
-    backend "auto" → the CUDA blend kernel (the port's one backend).
+    backend "auto" (or "cuda", "pallas") → the CUDA blend kernel;
+    "reference" → every surfel against every pixel, no budgets (slow:
+    the ground truth; `ops/rasterizer/api.py:resolve_backend`).
 
     `pallas_chunk` is the number of entries the blend kernels stage per
     step. `pallas_stash_carries`: training renders keep the forward's

@@ -39,10 +39,10 @@ def _render_frames(cams: List[PathCamera], gauss, cfg: Config,
     dev = centers.device
     W, H = img_size
     r = cfg.render
-    resolve_backend(r.backend)            # raises for an unported backend
     rcfg = RasterizeConfig(
         height=H, width=W, tile=r.tile, dup=r.dup, tile_budget=r.eval_tile_budget,
-        sh_degree=cfg.model.sh_degree, pallas_chunk=min(r.pallas_chunk, r.eval_tile_budget))
+        sh_degree=cfg.model.sh_degree, pallas_chunk=min(r.pallas_chunk, r.eval_tile_budget),
+        backend=resolve_backend(r.backend))
     bg = torch.ones(3, device=dev)
 
     def scalar(x):

@@ -184,14 +184,13 @@ class LaRaNet(nn.Module):
     def _render_cfg(self, H: int, W: int, train: bool) -> RasterizeConfig:
         r = self.cfg.render
         budget = r.tile_budget if train else r.eval_tile_budget
-        resolve_backend(r.backend)            # raises for an unported backend
         return RasterizeConfig(
             height=H, width=W, tile=r.tile, dup=r.dup, tile_budget=budget,
             sh_degree=self.cfg.model.sh_degree,
             visible_budget=r.visible_budget if train else r.eval_visible_budget,
             pallas_chunk=min(r.pallas_chunk, budget),
             stash_carries=r.pallas_stash_carries, bin_mode=r.bin_mode,
-            pack_mode=r.pack_mode)
+            pack_mode=r.pack_mode, backend=resolve_backend(r.backend))
 
     def encode_images(self, imgs: torch.Tensor, rays_down: torch.Tensor) -> torch.Tensor:
         """imgs [BV, H, W, 3], rays_down [BV, h, w, 6] (h = H/16) →

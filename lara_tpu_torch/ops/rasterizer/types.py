@@ -12,7 +12,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class RasterizeConfig:
     """Static rasterizer configuration: the fields of the JAX package's
-    RasterizeConfig that the port's one backend reads.
+    RasterizeConfig that the port's backends read.
 
     height/width: output image extent in pixels (multiples of `tile`).
     tile:        square tile edge in pixels (16 → 256 px per tile, one CUDA
@@ -39,6 +39,9 @@ class RasterizeConfig:
     pack_mode:   "gather" (pack the kept surfels' rows in depth order) or
                  "fused" (sort binning only: the pack stays elementwise
                  and the windows hold original surfel ids).
+    backend:     "cuda" (binning + the blend kernels) or "reference" (every
+                 surfel against every pixel, `reference.py`: no dup clamp,
+                 no budgets; the binned path's ground truth).
     """
 
     height: int = 512
@@ -58,6 +61,7 @@ class RasterizeConfig:
     stash_carries: bool = True
     bin_mode: str = "sort"
     pack_mode: str = "gather"
+    backend: str = "cuda"
 
     def __post_init__(self):
         if self.height % self.tile or self.width % self.tile:
@@ -66,6 +70,9 @@ class RasterizeConfig:
             raise ValueError(f"bin_mode must be 'sort' or 'count', got {self.bin_mode!r}")
         if self.pack_mode not in ("gather", "fused"):
             raise ValueError(f"pack_mode must be 'gather' or 'fused', got {self.pack_mode!r}")
+        if self.backend not in ("cuda", "reference"):
+            raise ValueError(f"backend must be 'cuda' or 'reference', got {self.backend!r} "
+                             "(api.resolve_backend maps a config's name)")
 
     @property
     def tiles_x(self) -> int:

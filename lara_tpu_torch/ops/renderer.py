@@ -84,7 +84,8 @@ def _postprocess(out, camera: Camera, rays, depth_ratio: float):
 def render_view_rebind(
     camera: Camera,
     rays: Optional[torch.Tensor],
-    binned,                         # BinnedView from render_view(return_binned)
+    binned,                         # BinnedView from render_view(return_binned);
+                                    # None on the reference backend (re-rasterizes)
     centers: torch.Tensor,          # [N, 3] — SAME geometry as the first render
     shs: torch.Tensor,              # [N, SH, 3] updated coefficients
     opacity_raw: torch.Tensor,      # [N] or [N,1] pre-sigmoid (original)

@@ -17,9 +17,10 @@ M = 9·131,072 sort keys per view) it times:
      batched rows loop over the views: `*_loop{NV}`), and whole `bin_view`
      calls in each bin_mode and in pack_mode "fused".
 
-Each stage is timed by the JAX tool's slope method: the time of r2 calls
-less that of r1 calls, over r2 - r1, best of `trials`, each run ended by
-`torch.cuda.synchronize()` (`ms`). Eager PyTorch dispatches op by op, so a
+Each stage is timed by the JAX tool's slope method (the timers are in
+`tools/timing.py`): the time of r2 calls less that of r1 calls, over
+r2 - r1, best of `trials`, each run ended by `torch.cuda.synchronize()`
+(`ms`). Eager PyTorch dispatches op by op, so a
 stage of a few small ops reads its host time there; on the card the table
 also gives the device time (`dev ms`, `queued_ms`: r1 calls queued behind a
 sleep kernel that outlasts their dispatch). The kernel's windows must equal the per-tile
@@ -32,14 +33,10 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import math
-import statistics
-import time
 
 import numpy as np
 import torch
 
-from lara_tpu_torch.config import RenderConfig
 from lara_tpu_torch.models.lara import make_cameras
 from lara_tpu_torch.ops.rasterizer.cuda_windows import (INT32_MAX, tile_windows,
                                                         tile_windows_reference)
@@ -48,64 +45,12 @@ from lara_tpu_torch.ops.rasterizer.tiled import (_GIDX_BITS, _pack_tile_bounds,
                                                  _windows_count, _windows_sort,
                                                  bin_view, pack_surfels, slot_keys,
                                                  tile_ranges)
-from lara_tpu_torch.ops.rasterizer.types import ProjectedSurfels, RasterizeConfig
+from lara_tpu_torch.ops.rasterizer.types import ProjectedSurfels
 from lara_tpu_torch.ops.renderer import (opacity_activation, rotation_activation,
                                          scaling_activation)
+from lara_tpu_torch.tools.timing import production_config, queued_ms, slope_time
 from lara_tpu_torch.tools.workload import lara_workload
 from lara_tpu_torch.utils.camera import Camera
-
-H = W = 512
-
-
-def slope_time(fn, args, r1, r2, fetch, trials=3) -> float:
-    """Seconds per call: (time of r2 calls - time of r1 calls) / (r2 - r1),
-    the least of `trials` such slopes, after r1 warm-up calls (one in the
-    JAX tool: here the caching allocator also grows its pool on the first
-    calls, which would inflate a first r1 run and shrink its slope);
-    `fetch` waits for the last call's result."""
-
-    def run(reps):
-        t0 = time.perf_counter()
-        o = None
-        for _ in range(reps):
-            o = fn(*args)
-        fetch(o)
-        return time.perf_counter() - t0
-
-    run(r1)
-    best = math.inf
-    for _ in range(trials):
-        a, b = run(r1), run(r2)
-        best = min(best, max((b - a) / (r2 - r1), 1e-9))
-    return best
-
-
-def queued_ms(fn, reps: int = 50, rounds: int = 5, cover_s: float = 0.025) -> float:
-    """Device ms per call of `fn` on the card: `reps` calls queued behind a
-    sleep kernel of about `cover_s` seconds (at 2 GHz), so the events time
-    back-to-back device work and not the host's dispatch, as long as the
-    host enqueues the calls within `cover_s`; median of `rounds`."""
-    fn()
-    times = []
-    for _ in range(rounds):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(int(cover_s * 2e9))
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return statistics.median(times)
-
-
-def raster_config() -> RasterizeConfig:
-    """The production training raster config (RenderConfig's defaults)."""
-    r = RenderConfig()
-    return RasterizeConfig(height=H, width=W, tile=r.tile, dup=r.dup,
-                           tile_budget=r.tile_budget, sh_degree=1,
-                           visible_budget=r.visible_budget,
-                           pallas_chunk=min(r.pallas_chunk, r.tile_budget))
 
 
 def orbit_cameras(nv: int, device):
@@ -141,7 +86,7 @@ def run(views: int = 8, trials: int = 3, device="cuda", n: int = 64 ** 3 * 2) ->
     else:
         print(f"[device] {dev}: plain versions; the times are this CPU's")
         fetch = lambda _: None  # noqa: E731
-    cfg = raster_config()
+    cfg = production_config()
     nv, k_budget, t_total = views, cfg.tile_budget, cfg.num_tiles
     v = min(cfg.visible_budget, n)
     win_label = "win_cuda_1" if dev.type == "cuda" else "win_plain_1"

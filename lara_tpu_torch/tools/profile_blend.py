@@ -48,7 +48,7 @@ import torch
 from lara_tpu_torch.ops import _build
 from lara_tpu_torch.ops.rasterizer import cuda_blend, cuda_windows
 from lara_tpu_torch.ops.rasterizer.types import RasterizeConfig
-from lara_tpu_torch.tools.profile_binning import queued_ms
+from lara_tpu_torch.tools.timing import queued_ms
 
 CONFIGS = {"train": (128, 131072), "eval": (512, 262144)}
 CHUNK = 64

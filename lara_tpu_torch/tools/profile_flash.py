@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from lara_tpu_torch.ops import flash
-from lara_tpu_torch.tools.profile_binning import queued_ms
+from lara_tpu_torch.tools.timing import queued_ms
 
 HBM_BYTES_PER_S, BF16_TC_FLOPS = 3.35e12, 989e12
 SHAPES = {"train": (12, 1025, 12, 64), "serve": (4, 1025, 12, 64)}

@@ -100,9 +100,12 @@ def jax_cfg(**kw):
 
 
 def torch_cfg(cfg):
-    """The port's RasterizeConfig with the same values as a JAX one."""
-    fields = {f.name for f in dataclasses.fields(RasterizeConfig)}
+    """The port's RasterizeConfig with the same values as a JAX one (the
+    JAX package's binned backends "tiled" and "pallas" are the port's
+    "cuda")."""
+    fields = {f.name for f in dataclasses.fields(RasterizeConfig)} - {"backend"}
     return RasterizeConfig(stash_carries=cfg.pallas_stash_carries,
+                           backend="reference" if cfg.backend == "reference" else "cuda",
                            **{k: v for k, v in dataclasses.asdict(cfg).items() if k in fields})
 
 

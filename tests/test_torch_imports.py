@@ -58,7 +58,13 @@ def test_every_module_imports(probe):
                 "lara_tpu_torch.tools.convert_checkpoint",
                 "lara_tpu_torch.parallel.distributed", "lara_tpu_torch.parallel.mesh",
                 "lara_tpu_torch.parallel.tp", "lara_tpu_torch.data.mvgen",
-                "lara_tpu_torch.tools.mesh_render", "lara_tpu_torch.tools.h5_to_store"}
+                "lara_tpu_torch.tools.mesh_render", "lara_tpu_torch.tools.h5_to_store",
+                "lara_tpu_torch.ops.rasterizer.reference", "lara_tpu_torch.tools.timing",
+                "lara_tpu_torch.tools.validate_fine_budget",
+                "lara_tpu_torch.tools.sweep_eval_budgets", "lara_tpu_torch.tools.ab_dup",
+                "lara_tpu_torch.tools.sweep_chunk", "lara_tpu_torch.tools.ab_kernels",
+                "lara_tpu_torch.tools.profile_rasterizer", "lara_tpu_torch.tools.profile_loss",
+                "lara_tpu_torch.tools.profile_input_pipeline"}
     assert expected <= set(probe["modules"])
 
 

@@ -140,9 +140,17 @@ def test_render_and_rebind_match_pallas(pallas_interpret):  # noqa: F811
 
 def test_backend_names():
     from lara_tpu_torch.ops.rasterizer.api import resolve_backend
-    assert resolve_backend("auto") == resolve_backend("pallas") == "cuda"
-    with pytest.raises(ValueError):
+    from lara_tpu_torch.ops.rasterizer.types import RasterizeConfig
+    assert resolve_backend("auto") == resolve_backend("pallas") == resolve_backend("cuda") == "cuda"
+    assert resolve_backend("reference") == "reference"
+    with pytest.raises(ValueError, match="plain version"):
         resolve_backend("tiled")
+    with pytest.raises(ValueError, match="unknown"):
+        resolve_backend("radix")
+    assert RasterizeConfig().backend == "cuda"
+    assert RasterizeConfig(backend="reference").backend == "reference"
+    with pytest.raises(ValueError, match="backend"):
+        RasterizeConfig(backend="tiled")
 
 
 def test_window_gather_invalid_slots_send_no_gradient():

@@ -43,6 +43,12 @@ each prints its seconds:
      with the blend swapped for the plain version; then two requests with
      `flash_attn=True` on the same weights (12 flash launches each),
      `image_fine` against the default path's;
+  6b. the unscanned volume-transformer stack: one serving request with
+     `model.n_groups=[16, 8]` (block sizes 2 and 4 cycling over the 12
+     layers) on the serving phase's weights and first batch: 16 blend
+     launches, finite outputs; then `ops/knn.py:knn_mean_dist` on the card
+     at N = 65,536 against the same call on the CPU, within 1e-5 relative
+     per point;
   7. binning, on the `lara_workload` scene (524,288 surfels with trained
      statistics) at the train (K 128, V 131,072) and eval (K 512,
      V 262,144) raster configs: (a) the window kernel `tile_windows`
@@ -915,6 +921,58 @@ def slice_phase(dev) -> dict:
         blk.attn.use_flash = False
     return {"launches": counts, "flash_launches": counts_flash,
             "net": net, "batches": batches, "image_fine": first}
+
+
+def groups_phase(dev, serving: dict) -> dict:
+    """A serving request on the unscanned volume-transformer stack:
+    `model.n_groups=[16, 8]` (block sizes 2 and 4, cycling over the 12
+    layers) at the flagship width with the serving phase's weights (the
+    shapes do not depend on n_groups) on its first batch: 16 blend launches,
+    finite outputs; prints the seconds and how far `image_fine` moved from
+    the default stack's."""
+    cfg = Config()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, n_groups=(16, 8)))
+    net = LaRaNet(cfg, dtype=torch.bfloat16, device=dev)
+    net.load_state_dict(serving["net"].state_dict(), strict=True)
+    blocks = net.vol_decoder.block_sizes
+    if blocks != [2, 4]:
+        raise AssertionError(f"groups: block sizes {blocks}, expected [2, 4]")
+    none = {k: 0 for k in launches()}
+    reset_launches()
+    first, seconds = serve_requests(net, serving["batches"][:1],
+                                    {**none, "blend_fwd": 4 * cfg.n_views}, "groups")
+    counts = launches()
+    diff = (first - serving["image_fine"]).abs()
+    print(f"[groups] n_groups (16, 8), block sizes {blocks}: {seconds[0]:.4f} s a request; "
+          f"|image_fine - the (16,) stack's|: mean {diff.mean().item():.3e}, max "
+          f"{diff.max().item():.3e}")
+    del net
+    return {"launches": counts}
+
+
+KNN_N, KNN_RTOL = 65536, 1e-5
+
+
+def knn_phase(dev) -> None:
+    """`ops/knn.py:knn_mean_dist` (plain torch, no kernel: the JAX function
+    has none) on the card at N = 65,536 against the same call on the CPU,
+    within KNN_RTOL relative per point; prints both seconds."""
+    from lara_tpu_torch.ops.knn import knn_mean_dist
+
+    pts = torch.from_numpy(np.random.default_rng(15).normal(size=(KNN_N, 3)).astype(np.float32))
+    got = knn_mean_dist(pts.to(dev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = knn_mean_dist(pts.to(dev)).cpu()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = knn_mean_dist(pts)
+    cpu_s = time.perf_counter() - t0
+    rel = ((got - want).abs() / want.abs()).max().item()
+    print(f"[knn] N {KNN_N}: card {card_s:.4f} s, CPU {cpu_s:.2f} s; max relative difference "
+          f"{rel:.3e} (bar {KNN_RTOL:g}); mean distance {want.mean().item():.6f}")
+    if not (got.shape == want.shape and bool(torch.isfinite(got).all()) and rel <= KNN_RTOL):
+        raise AssertionError(f"knn: card and CPU differ by {rel:.3e} relative")
 
 
 def workload_scene(dev):
@@ -2831,10 +2889,10 @@ def tp_phase(dev, tmp: str, store: str) -> dict:
     return {"launches": total}
 
 
-def kernel_records(kernel, backward, flash_res, serving, binning, train, train_knobs,
+def kernel_records(kernel, backward, flash_res, serving, groups, binning, train, train_knobs,
                    evaluation, infer, mvgen, dp, tp_res, raster) -> list:
     """The kernels line: each kernel's launches on its paths (the blend
-    forward's on the serving, evaluate, infer-dataset, mvgen, data- and
+    forward's on the serving (both stacks), evaluate, infer-dataset, mvgen, data- and
     tensor-parallel paths,
     the stash forward's and backward's on the flagship, data- and
     tensor-parallel training paths, the replay backward's and the flash
@@ -2853,7 +2911,8 @@ def kernel_records(kernel, backward, flash_res, serving, binning, train, train_k
 
     return [
         rec("blend_fwd", "blend_fwd.cu", pallas + ":398",
-            serving["launches"]["blend_fwd"] + evaluation["launches"]["blend_fwd"]
+            serving["launches"]["blend_fwd"] + groups["launches"]["blend_fwd"]
+            + evaluation["launches"]["blend_fwd"]
             + infer["launches"]["blend_fwd"] + mvgen["launches"]["blend_fwd"]
             + dp["launches"]["blend_fwd"]
             + tp_res["launches"]["blend_fwd"] + raster["launches"]["blend_fwd"],
@@ -2918,6 +2977,8 @@ def main() -> int:
     backward = phase("backward kernels (stash and replay)", backward_phase, dev)
     flash_res = phase("flash attention", flash_phase, dev)
     serving = phase("serving (default, then flash attention)", slice_phase, dev)
+    groups = phase("serving (n_groups [16, 8]: the unscanned stack)", groups_phase, dev, serving)
+    phase("knn_mean_dist (card against CPU)", knn_phase, dev)
     binning = phase("binning (window kernel, bin modes, profiler)", binning_phase, dev, serving)
     torch.cuda.empty_cache()
     raster = phase("raster tools (reference backend, fine budget, sweeps, profilers)",
@@ -2977,8 +3038,8 @@ def main() -> int:
           + json.dumps({k: v for k, v in dp["launches"].items() if v}))
     print("[tp] launches on the tensor-parallel paths: "
           + json.dumps({k: v for k, v in tp_res["launches"].items() if v}))
-    records = kernel_records(kernel, backward, flash_res, serving, binning, train, train_knobs,
-                             evaluation, infer, mvgen, dp, tp_res, raster)
+    records = kernel_records(kernel, backward, flash_res, serving, groups, binning, train,
+                             train_knobs, evaluation, infer, mvgen, dp, tp_res, raster)
     for r in records:
         if r["launches"] <= 0:
             raise AssertionError(f"{r['name']} was not launched on its path")

@@ -2,9 +2,10 @@
 `lara_tpu/models/convert.py:convert_network_state_dict`.
 
 `params_from_jax(tree)` takes `LaRaNet.init(...)["params"]` of the JAX
-package as numpy arrays (scanned layer stacks with a leading layer axis)
-and returns the reference-named state dict that `lara_tpu_torch.LaRaNet`
-loads:
+package as numpy arrays (scanned layer stacks with a leading layer axis;
+the volume transformer's `layer0 … layer{L-1}` where `model.n_groups`
+gives more than one block size) and returns the reference-named state
+dict that `lara_tpu_torch.LaRaNet` loads:
   - Dense kernels [in, out] → Linear weights [out, in];
   - the ViT's separate q/k/v projections → timm's joint `qkv`;
   - Conv [kh, kw, (kd,) in, out] → [out, in, kh, kw, (kd)];
@@ -89,19 +90,24 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
         sd["view_embed"] = _t(ve.reshape(*ve.shape, 1, 1, 1))
 
     vol = tree["vol_decoder"]
-    if "layers" not in vol:
-        raise NotImplementedError("only the scanned (single n_groups) layer stack is supported")
     sd["vol_decoder.pos_embed"] = _t(np.asarray(vol["pos_embed"]).transpose(0, 4, 1, 2, 3))
-    stack = vol["layers"]["block"]
-    for i in range(np.asarray(stack["norm1"]["scale"]).shape[0]):
-        blk, key = _layer(stack, i), f"vol_decoder.layers.{i}."
+    if "layers" in vol:
+        # one block size: a scanned stack with a leading layer axis
+        stack = vol["layers"]["block"]
+        blocks = [_layer(stack, i) for i in range(np.asarray(stack["norm1"]["scale"]).shape[0])]
+    else:
+        # block sizes cycling over n_groups (volume.py:213-222): layer0 … layer{L-1}
+        n = sum(k.startswith("layer") and k[5:].isdigit() for k in vol)
+        blocks = [vol[f"layer{i}"] for i in range(n)]
+    for i, blk in enumerate(blocks):
+        key = f"vol_decoder.layers.{i}."
         for nm in ("norm1", "norm2", "norm3"):
             _layernorm(sd, key + nm, blk[nm])
         _mha(sd, key + "cross_attn", blk["cross_attn"])
         _linear(sd, key + "mlp.0", blk["mlp"]["fc1"])
         _linear(sd, key + "mlp.3", blk["mlp"]["fc2"])
         # [kd, kh, kw, in, out] → [out, in, kd, kh, kw]
-        sd[key + "cnn.weight"] = _t(blk["cnn"]["kernel"].transpose(4, 3, 0, 1, 2))
+        sd[key + "cnn.weight"] = _t(np.asarray(blk["cnn"]["kernel"]).transpose(4, 3, 0, 1, 2))
     _layernorm(sd, "vol_decoder.norm", vol["norm"])
     dk = np.asarray(vol["deconv"]["kernel"])[::-1, ::-1, ::-1]   # taps flipped back
     sd["vol_decoder.deconv.weight"] = _t(dk.transpose(3, 4, 0, 1, 2))

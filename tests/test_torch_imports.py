@@ -64,7 +64,8 @@ def test_every_module_imports(probe):
                 "lara_tpu_torch.tools.sweep_eval_budgets", "lara_tpu_torch.tools.ab_dup",
                 "lara_tpu_torch.tools.sweep_chunk", "lara_tpu_torch.tools.ab_kernels",
                 "lara_tpu_torch.tools.profile_rasterizer", "lara_tpu_torch.tools.profile_loss",
-                "lara_tpu_torch.tools.profile_input_pipeline"}
+                "lara_tpu_torch.tools.profile_input_pipeline", "lara_tpu_torch.ops.knn",
+                "lara_tpu_torch.tools.quality_report"}
     assert expected <= set(probe["modules"])
 
 

@@ -1,7 +1,9 @@
 """The port's network and serving forward against the JAX package, in f32
 on both sides, on `tests/test_model.py:tiny_config` with the same weights
 (`params_from_jax`), and the view selection (`n_views_sel`, `view_mask`)
-and `render_scale` against the JAX forward at 4 input views.
+and `render_scale` against the JAX forward at 4 input views; the
+unscanned volume-transformer stack (`n_groups=(4, 2)`, block sizes
+cycling) converted and held against JAX's.
 
 Tolerances: the ViT, ModLN and decoders at atol 1e-4 (f32 matmul order);
 the volume transformer at 5e-4 (two stacked layers, as tests/test_convert.py);
@@ -203,6 +205,88 @@ def test_masked_modules_match_jax(nets):
         one_view = tnet.decoder.forward_fine(_t(vol), _t(pf[:, :1]))
     np.testing.assert_allclose(got.numpy(), _np(want), atol=1e-4)
     np.testing.assert_allclose(got.numpy(), one_view.numpy(), atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def nets_groups():
+    """The `nets` setting with `n_groups=(4, 2)` and 3 layers: block sizes
+    2, 4, 2, which JAX builds as the unscanned `layer0 … layer2`; the
+    weights from PRNGKey(0), carried across by `params_from_jax` and loaded
+    strictly. One JAX init for the tests below."""
+    cfg = tiny_config()
+    cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, n_groups=(4, 2), num_layers=3),
+        render=dataclasses.replace(cfg.render, backend="pallas"))
+    jnet = JaxLaRaNet(cfg, dtype=jnp.float32)
+    params = jax.jit(lambda r: jnet.init(r, synthetic_batch(B=1), with_fine=True,
+                                         train=False))(jax.random.PRNGKey(0))
+    tnet = LaRaNet(config_from_dict(dataclasses.asdict(cfg)), dtype=torch.float32,
+                   device="cpu")
+    tnet.load_state_dict(params_from_jax(params["params"]), strict=True)
+    return cfg, jnet, params, tnet.eval()
+
+
+def test_unscanned_stack_converts_to_the_scanned_names(nets_groups):
+    """The JAX tree has `layer{i}` in place of `layers/block`; converted, it
+    gives the state-dict names of the same network with one block size."""
+    cfg, _, params, _ = nets_groups
+    vol = params["params"]["vol_decoder"]
+    assert "layers" not in vol and {f"layer{i}" for i in range(3)} <= set(vol)
+    one_size = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, n_groups=(4,)))
+    scanned = LaRaNet(config_from_dict(dataclasses.asdict(one_size)), dtype=torch.float32,
+                      device="cpu")
+    sd = params_from_jax(params["params"])
+    assert set(sd) == set(scanned.state_dict())
+    blk = vol["layer1"]
+    np.testing.assert_array_equal(sd["vol_decoder.layers.1.norm2.weight"].numpy(),
+                                  _np(blk["norm2"]["scale"]))
+    np.testing.assert_array_equal(sd["vol_decoder.layers.1.mlp.0.weight"].numpy(),
+                                  _np(blk["mlp"]["fc1"]["kernel"]).T)
+
+
+def test_scanned_stack_still_converts(nets):
+    """A one-block-size config keeps JAX's scanned stack, and each layer's
+    tensors are that stack's slices."""
+    _, _, params, _ = nets
+    vol = params["params"]["vol_decoder"]
+    assert "layers" in vol and not any(k.startswith("layer") and k[5:].isdigit() for k in vol)
+    sd = params_from_jax(params["params"])
+    stack = vol["layers"]["block"]
+    for i in range(2):
+        np.testing.assert_array_equal(sd[f"vol_decoder.layers.{i}.norm1.bias"].numpy(),
+                                      _np(stack["norm1"]["bias"])[i])
+        np.testing.assert_array_equal(
+            sd[f"vol_decoder.layers.{i}.cnn.weight"].numpy(),
+            _np(stack["cnn"]["kernel"])[i].transpose(4, 3, 0, 1, 2))
+
+
+def test_unscanned_vol_transformer_parity(nets_groups):
+    """The block sizes cycle as JAX's (`i % len(n_groups)`, volume.py:217):
+    the port's stack equals JAX's at the atol of test_vol_transformer_parity,
+    and the same weights with the sizes in the other order do not."""
+    cfg, jnet, params, tnet = nets_groups
+    m = cfg.model
+    r = m.vol_feat_reso
+    feats = np.random.default_rng(2).normal(
+        size=(1, cfg.n_views, r, r, r, m.encoder_dim + m.view_embed_dim)).astype(np.float32)
+    want = jnet.apply(params, jnp.asarray(feats), method=lambda mod, x: mod.vol_decoder(x))
+    assert tnet.vol_decoder.block_sizes == [2, 4]
+    with torch.no_grad():
+        got = tnet.vol_decoder(_t(feats))
+        tnet.vol_decoder.block_sizes = [4, 2]
+        try:
+            swapped = tnet.vol_decoder(_t(feats))
+        finally:
+            tnet.vol_decoder.block_sizes = [2, 4]
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=5e-4)
+    assert np.abs(swapped.numpy() - _np(want)).max() > 1e-2
+
+
+def test_unscanned_serving_slice_matches_jax(nets_groups, pallas_interpret):  # noqa: F811
+    """The serving forward on the unscanned stack, as
+    test_serving_slice_matches_jax runs it."""
+    _assert_slice_matches_jax(nets_groups, synthetic_batch(B=1))
 
 
 @pytest.fixture(scope="module")

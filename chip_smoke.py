@@ -40,9 +40,14 @@ each prints its seconds:
   6. serving: two flagship-width requests (B=1, 4+4 views at 512², seeded
      random weights) through `make_forward`, each checked for shapes,
      finite values, coverage and exactly 16 forward launches; one request
-     with the blend swapped for the plain version; then two requests with
-     `flash_attn=True` on the same weights (12 flash launches each),
-     `image_fine` against the default path's;
+     with the blend swapped for the plain version; the fine stage's top-M
+     selection (`models/lara.py:select_top_m`, `jax.lax.top_k`'s tie
+     order) on the request's scores and on N(-2, 1) bf16 logits at both
+     budgets, the card's index sequence equal to the CPU's, the ties at the
+     M-th score, its time beside the `torch.topk` it replaced, and the
+     request's `image_fine` with `torch.topk` in its place; then two
+     requests with `flash_attn=True` on the same weights (12 flash launches
+     each), `image_fine` against the default path's;
   6b. the unscanned volume-transformer stack: one serving request with
      `model.n_groups=[16, 8]` (block sizes 2 and 4 cycling over the 12
      layers) on the serving phase's weights and first batch: 16 blend
@@ -239,6 +244,7 @@ import torch
 from lara_tpu_torch.config import (Config, ModelConfig, RenderConfig, TrainConfig,
                                    load_config, parse_cli)
 from lara_tpu_torch.models import LaRaNet
+from lara_tpu_torch.models import lara as lara_model
 from lara_tpu_torch.models import vit
 from lara_tpu_torch.ops import _build, flash
 from lara_tpu_torch.ops.gather import window_gather
@@ -251,8 +257,8 @@ from lara_tpu_torch.ops.renderer import (opacity_activation, rotation_activation
                                          scaling_activation)
 from lara_tpu_torch.parallel import tp
 from lara_tpu_torch.tools import (ab_dup, ab_kernels, profile_binning, profile_input_pipeline,
-                                  profile_loss, profile_rasterizer, sweep_chunk,
-                                  sweep_eval_budgets, validate_fine_budget)
+                                  profile_loss, profile_rasterizer, profile_select,
+                                  sweep_chunk, sweep_eval_budgets, validate_fine_budget)
 from lara_tpu_torch.tools.timing import production_config, psnr, queued_ms
 from lara_tpu_torch.tools.profile_flash import sdpa_ms
 from lara_tpu_torch.tools.workload import lara_workload
@@ -863,6 +869,68 @@ def serve_requests(net, batches, want: dict, tag: str):
     return first, seconds
 
 
+@contextlib.contextmanager
+def fine_selection(fn):
+    """The fine stage's top-M selection (`models/lara.py:select_top_m`)
+    replaced by `fn(score, m) -> (vals, idx)` inside the block."""
+    saved = lara_model.select_top_m
+    lara_model.select_top_m = fn
+    try:
+        yield
+    finally:
+        lara_model.select_top_m = saved
+
+
+def selection_check(net, batch, first) -> None:
+    """The fine stage's top-M selection on a flagship bf16 request. Runs the
+    request again with its scores captured, then with the `torch.topk` that
+    `_fine_stage` called before this selection; prints the scores tied at
+    the M-th value, the surfels the two select differently, and the
+    `image_fine` delta (beside the same selection run twice). Then
+    `profile_select.compare` on the request's scores and on N(-2, 1) bf16
+    logits at N = 524,288, at M = fine_budget and 262,144: the card's index
+    sequence and value bits must equal the CPU's (it raises where not);
+    prints `torch.topk`'s and `select_top_m`'s queued device ms."""
+    captured, select = [], lara_model.select_top_m
+
+    def capture(score, m):
+        captured.append((score.clone(), m))
+        return select(score, m)
+
+    fwd = make_forward(net, with_fine=True)
+    with fine_selection(capture):
+        new = fwd(batch)["image_fine"]
+    with fine_selection(torch.topk):
+        old = fwd(batch)["image_fine"]
+    ((score, m),) = captured
+    vals, idx = select(score, m)
+    chosen = torch.zeros(score.shape[0], dtype=torch.bool, device=score.device)
+    chosen[idx] = True
+    rendered = chosen & (score > 0.0)
+    old_chosen = torch.zeros_like(chosen)
+    old_chosen[torch.topk(score, m).indices] = True
+    diff, floor = (new - old).abs(), (new - first).abs().max().item()
+    print(f"[select] request: N={score.shape[0]} M={m}, "
+          f"{int((score == vals[-1]).sum())} scores tied at the M-th ({vals[-1].item():.6f}), "
+          f"{int((score == vals[-1]).sum() - (vals == vals[-1]).sum())} of them left out; "
+          f"torch.topk selects {int((old_chosen & ~chosen).sum())} surfels otherwise "
+          f"(rendered sets differ in {int(((old_chosen & (score > 0.0)) ^ rendered).sum())}); "
+          f"|image_fine select_top_m - torch.topk|: mean {diff.mean().item():.3e}, max "
+          f"{diff.max().item():.3e} (select_top_m run twice: max {floor:.3e})")
+    print(nvidia_smi_line())
+    cases = [("request", score), ("N(-2,1) bf16", profile_select.fine_scores(
+        N_SURFELS, 1.0, score.device))]
+    for tag, s in cases:
+        for budget in sorted({min(b, s.shape[0]) for b in (m, *profile_select.BUDGETS)}):
+            row = profile_select.compare(s, budget)
+            ms = row["ms"]
+            print(f"[select] {tag} M={row['m']}: card equals CPU (index sequence, value "
+                  f"bits); {row['tied_at_mth']} tied at the M-th, torch.topk "
+                  f"{row['topk_outside_exact_set']} outside the exact set; queued ms "
+                  f"before (torch.topk) {ms['torch.topk']:.5f}, after (select_top_m) "
+                  f"{ms['select_top_m']:.5f}", flush=True)
+
+
 def slice_phase(dev) -> dict:
     """The serving path: flagship requests through `make_forward`, with the
     default attention and then with `flash_attn=True` on the same weights."""
@@ -897,6 +965,7 @@ def slice_phase(dev) -> dict:
     if not diff <= SLICE_ATOL:
         raise AssertionError(f"slice: kernel and plain blend differ by {diff}")
     del plain
+    selection_check(net, batches[0], first)
 
     # flash attention in the ViT, same weights
     net.cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, flash_attn=True))

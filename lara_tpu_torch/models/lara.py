@@ -79,6 +79,18 @@ def resize_linear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return out.permute(0, 2, 3, 1).reshape(b, n, h, w, *rest).to(x.dtype)
 
 
+def select_top_m(score: torch.Tensor, m: int):
+    """The `m` largest entries of the 1-D `score` as `jax.lax.top_k` returns
+    them: (vals, idx), the values in descending order and equal values in
+    ascending index order. What matters is the set: where the scores tie at
+    the m-th value, the lower indices are the ones selected. One stable
+    descending sort on either device; `vals` are the scores themselves. The
+    fine stage's scores tie often: the opacity logits are bf16 before
+    `.float()`, so they take a few thousand values."""
+    idx = torch.argsort(score, descending=True, stable=True)[:m]
+    return score[idx], idx
+
+
 def _view(cams: Camera, b: int, v: int) -> Camera:
     return Camera(cams.w2c[b, v], cams.campos[b, v], cams.tanfovx[b, v],
                   cams.tanfovy[b, v], cams.near[b, v], cams.far[b, v])
@@ -365,10 +377,10 @@ class LaRaNet(nn.Module):
 
         sh_out, masks = [], []
         for b in range(centers.shape[0]):
-            # torch.topk may order equal scores unlike lax.top_k; the ties
-            # that occur are at the -1 floor, and those entries are
-            # deselected (vals <= 0), so the rendered set is the same
-            vals, idx = torch.topk(score[b], M)
+            # ties at the budget (common: the logits are bf16) go to the
+            # lower index, as lax.top_k breaks them, so the selected set
+            # (sel_mask, the surfels given a residual) is JAX's
+            vals, idx = select_top_m(score[b], M)
             c_sel = centers[b][idx]
             vol_sel = volume_feat_up[b][idx // m.K]     # K surfels per voxel
             pf = []

@@ -71,7 +71,7 @@ def _stage_timers(net, times):
         (net, "build_feat_vol", "build_feat_vol"),
         (net.vol_decoder, "forward", "vol_decoder"),
         (net.decoder, "forward_coarse", "coarse decoder"),
-        (net, "_fine_stage", "fine_stage (topk + grid_sample + decoder)"),
+        (net, "_fine_stage", "fine_stage (top-M + grid_sample + decoder)"),
         (cuda, "preprocess_surfels", "preprocess (coarse)"),
         (api, "preprocess_surfels", "preprocess (fine rebind)"),
         (cuda, "bin_view", "bin_view (sort + windows)"),

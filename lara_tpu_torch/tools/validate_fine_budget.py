@@ -28,6 +28,7 @@ import json
 
 import torch
 
+from lara_tpu_torch.models.lara import select_top_m
 from lara_tpu_torch.ops.renderer import render_view
 from lara_tpu_torch.tools.timing import (N_SURFELS, SIZE, banner, bench_camera,
                                          production_config, psnr, tool_device)
@@ -46,12 +47,13 @@ def census_mask(op_raw: torch.Tensor) -> torch.Tensor:
 
 def top_m_mask(op_raw: torch.Tensor, m: int) -> torch.Tensor:
     """The fine stage's static selection: the `m` surfels of largest score
-    (activated opacity where active, else -1), ties to the lower index as
-    `jax.lax.top_k` breaks them, and of those the active ones."""
+    (activated opacity where active, else -1) by the model's `select_top_m`
+    (ties to the lower index, as `jax.lax.top_k`), and of those the active
+    ones."""
     active = census_mask(op_raw)
     score = torch.where(active, torch.sigmoid(op_raw), -1.0)
     keep = torch.zeros_like(active)
-    keep[torch.argsort(score, descending=True, stable=True)[:m]] = True
+    keep[select_top_m(score, m)[1]] = True
     return keep & active
 
 

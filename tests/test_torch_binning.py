@@ -151,6 +151,30 @@ def test_bin_view_fused_matches_jax(n, kw):
     np.testing.assert_array_equal(packed_t.numpy(), np.asarray(packed_j))
 
 
+@pytest.mark.parametrize("mode", [{}, {"bin_mode": "count"}, {"pack_mode": "fused"}],
+                         ids=["sort_gather", "count", "fused"])
+def test_bin_view_depth_ties_match_jax(mode):
+    """Depths rounded to 0.05 so that many tie exactly, with the visible
+    budget cutting through a tie: the port's stable depth sort
+    (`ops/rasterizer/tiled.py:152`) must keep equal depths in index order as
+    the JAX `bin_view` does (`lara_tpu/ops/rasterizer/tiled.py:194`, the
+    stable `jnp.argsort`; the fused mode's stable `lax.sort`): equal
+    `order_v`, windows and packed rows. One JAX compile per mode."""
+    cfg = make_cfg(visible_budget=400, **mode)
+    g_j, g_t = _projected(700, 11, cfg)
+    depth = np.round(np.asarray(g_j.depth) / 0.05) * 0.05
+    g_j = g_j._replace(depth=jnp.asarray(depth, jnp.float32))
+    g_t = g_t._replace(depth=t(depth))
+    packed_j, want = jax.jit(lambda g: jax_bin_view(g, cfg))(g_j)
+    packed_t, got = bin_view(g_t, torch_cfg(cfg))
+    _assert_windows_equal(got, want)
+    np.testing.assert_array_equal(packed_t.numpy(), np.asarray(packed_j))
+    key = np.where(np.asarray(g_j.valid), depth.astype(np.float32), np.inf)
+    order = np.asarray(want.order_v)
+    assert len(np.unique(key[order])) < len(order) / 4       # ties throughout
+    assert np.sum(key == key[order[-1]]) > np.sum(key[order] == key[order[-1]])  # and at the cut
+
+
 @pytest.mark.parametrize("field", ["bin_mode", "pack_mode"])
 def test_unknown_binning_mode_raises(field):
     with pytest.raises(ValueError, match=field):

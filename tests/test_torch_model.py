@@ -8,8 +8,9 @@ cycling) converted and held against JAX's.
 Tolerances: the ViT, ModLN and decoders at atol 1e-4 (f32 matmul order);
 the volume transformer at 5e-4 (two stacked layers, as tests/test_convert.py);
 the slice at atol 1e-3 on image / acc_map (coarse and fine) and 5e-3 on
-depth, after the fine selections agree as sets (lax.top_k and torch.topk may
-order ties differently).
+depth, after the fine selections agree as sets (the render buffers hold the
+selection as a mask; the index sequence, ties to the lower index as
+lax.top_k gives them, is held in tests/test_torch_select.py).
 """
 
 import dataclasses

@@ -9,11 +9,12 @@ each prints its seconds:
      off in matmuls and cuDNN convolutions;
   2. build every kernel of `lara_tpu_torch/csrc/` (one nvcc per source,
      started together) and print each kernel's registers and spills (from
-     the build logs kept beside the libraries), the blend kernels' shared
-     memory and blocks per SM at chunk 64 and budgets 128 and 512 (the
-     replay's grows with the budget), the flash kernels' dynamic shared
-     memory and (with `cuobjdump`) their HGMMA instructions; fail where ptxas
-     serialised a wgmma;
+     the build logs kept beside the libraries), every blend instantiation's
+     (tiles 8, 16 and 32; the backward in its shared and global forms)
+     shared memory and blocks per SM at the OCCUPANCY configs (the replay's
+     grows with the budget), the flash kernels' dynamic shared memory and
+     (with `cuobjdump`) their HGMMA instructions; fail where ptxas
+     serialised a wgmma in any kernel;
   3. forward kernel vs plain version (`blend_tiles_reference`) on a random
      524,288-surfel scene at 512², binned at the train (budget 128) and eval
      (budget 512) raster configs, plus opaque, empty-tile and over-budget
@@ -28,6 +29,18 @@ each prints its seconds:
      chunk 64 and at budget 256 / chunk 8 (32 chunks per tile); two
      backward calls equal bit for bit; queued device ms of the kernels and
      of their plain versions;
+  4b. the envelope (ENVELOPE), on `lara_workload` at 512²: tile 32 at
+     budget 512 / chunk 64 (stash forward, stash backward, replay), at
+     budget 2048 (the eval forward) and at 1024 / 64 (the replay's global
+     form); tile 16 at 4096 / 64 (the replay's global form), at 512 with
+     chunks 256 and 512 (both backwards) and at 2048 / 1024 (the forward,
+     staged in pieces of 512); tile 8 at 256², 32 / 32 (all three kernels);
+     both backwards at a chunk of the whole budget, staged in pieces: tiles
+     16 and 32 at 256², 1024 (tile 32's in the global form), tile 16 at
+     128², 4096 and tile 8 at 64², 16384 (the global form):
+     each kernel against its plain version at the bars of phases 3 and 4,
+     the replay against the stash path bit for bit, which form each
+     backward took, queued device ms and bounds;
   5. flash attention at the ViT's shapes [4, 1025, 12, 64] (serving) and
      [12, 1025, 12, 64] (train) in bf16, a ragged L=200 case with a
      kv_mask, head_dims 16, 48, 80, 96, 112 and 128 at L=257, and f32 at
@@ -87,7 +100,9 @@ each prints its seconds:
      `profile_input_pipeline` at 256² over 1 and 4 threads) once, at
      reduced repetitions, each printing its JSON line; the top-M renders
      at M at or above the census must equal the mask render bit for bit;
-     the blend launches of (c) count on the kernels line;
+     the blend launches of (c) count on the kernels line; beside (a), the
+     PSNR of a train-budget render at tile 32 (512 entries a tile, the same
+     0.5 per pixel) against the reference;
   8. training, reduced config (tests/test_model.py:tiny_config at 128², f32):
      one fine micro-step through the kernels and one through the plain
      versions give the same loss and gradients, by default and with
@@ -102,6 +117,11 @@ each prints its seconds:
      (no stash, the replay backward, the flash kernels), and one fine
      micro-step with `remat_policy="dots"` too; seconds and peak memory of
      each beside the default's;
+  9b. the flagship `Config()` at other tiles (TILE_PATHS): `render.tile`
+     32 with budgets 512 / 2048 at 512², and tile 8 with 32 / 128 at 256²:
+     one B=1 request through `make_forward` and one B=3 fine micro-step
+     with the stash and one with the replay through `make_train_step`, each
+     with exactly its tile's kernel launches and finite outputs;
   10. the trainer on `configs/synthetic256.yaml` (the flagship network at
      B=3, 4 + 4 views of synthetic scenes at 256²): a store of 32 scenes
      (12 views each) is written to a temporary directory, then
@@ -473,46 +493,70 @@ def check_hgmma() -> None:
             raise AssertionError(f"bf16 flash kernels without wgmma: {missing}")
 
 
+# (tile, chunk, budget) at which the build phase prints each blend
+# instantiation's shared memory and blocks per SM: tile 16 at the train and
+# eval budgets, tiles 32 and 8 at the flagship's 0.5 and 2 entries per pixel
+# (0.5 is tile 32's train budget), tile 32 at the replay's first global form
+OCCUPANCY = ((16, 64, 128), (16, 64, 512), (32, 64, 512), (32, 64, 1024), (32, 64, 2048),
+             (8, 32, 32), (8, 32, 128))
+
+
 def build_phase_report() -> None:
     """Print every kernel's registers and spills from the build logs (kept
-    beside the libraries, so a cached build prints them too), the blend
-    kernels' shared memory and blocks per SM at the path's chunk, and the
-    flash kernels' shared memory; fail if ptxas serialised a wgmma."""
+    beside the libraries, so a cached build prints them too), each blend
+    instantiation's shared memory and blocks per SM at the OCCUPANCY
+    configs and which backward form each config takes, and the flash
+    kernels' shared memory; fail if ptxas serialised a wgmma in any kernel,
+    every blend instantiation included."""
     resources = _build.kernel_resources(_build.build_log)
     if not resources:
         raise AssertionError("the build logs name no kernel")
+    missing = [k for k in cuda_blend.KERNELS if k not in resources]
+    if missing:
+        raise AssertionError(f"the build logs lack the blend instantiations {missing}")
     for name, r in resources.items():
         print(f"[build] {name}: {r['registers']} registers, spill stores "
               f"{r['spill_stores']} B, spill loads {r['spill_loads']} B")
-    for budget in (128, 512):
-        for name, (threads, smem, regs, blocks) in blend_occupancy(resources, 64,
-                                                                   budget).items():
-            r = resources[name]
+    for tile, chunk, budget in OCCUPANCY:
+        for name, (threads, smem, regs, blocks, taken) in blend_occupancy(
+                resources, chunk, budget, tile).items():
             print(f"[build] {name}: {threads} threads, {smem} B shared memory (dynamic and "
-                  f"static) per block at budget {budget} chunk 64, {regs} registers, spill stores "
-                  f"{r['spill_stores']} B loads {r['spill_loads']} B: {blocks} blocks per SM")
+                  f"static) per block at tile {tile} budget {budget} chunk {chunk}, {regs} "
+                  f"registers: {blocks} blocks per SM"
+                  + ("" if taken else " (not the form this config takes)"))
     for hd in (64, 128):
         print(f"[build] flash bf16 dynamic shared memory per CTA at head_dim {hd}: "
               + ", ".join(f"{k} {v} bytes" for k, v in flash.kernel_smem(hd).items()))
     serialised = _build.serialised_wgmma(_build.build_log)
     if serialised:
         raise AssertionError(f"ptxas serialised the wgmma of {serialised}")
-    print("[build] no wgmma serialised (ptxas C7514 / C7515 / C7519 / C7520)")
+    print(f"[build] no wgmma serialised (ptxas C7514 / C7515 / C7519 / C7520) in "
+          f"{len(resources)} kernels")
 
 
-def blend_occupancy(resources: dict, chunk: int, budget: int) -> dict:
-    """{kernel: (threads, shared memory bytes, registers, blocks per SM)}
-    of each blend kernel at `chunk` and `budget`: its dynamic shared memory
-    as the launch asks for it plus its static shared memory, and its
-    registers, from the build log."""
-    smem = cuda_blend.kernel_smem(chunk, budget)
+def blend_occupancy(resources: dict, chunk: int, budget: int, tile: int = 16) -> dict:
+    """{kernel: (threads, shared memory bytes, registers, blocks per SM,
+    whether this config takes it)} of each blend instantiation of `tile`
+    at `chunk` and `budget`: its dynamic shared memory as its launch asks
+    for it (the backward's in the instantiation's own form; 0 blocks where
+    that passes what a block may ask for) plus its static shared memory,
+    and its registers, from the build log."""
     out = {}
     for name, r in resources.items():
-        lib = cuda_blend.KERNELS.get(name)
-        if lib is not None:
-            threads, block_smem = cuda_blend.THREADS[lib], smem[lib] + r["static_smem"]
-            out[name] = (threads, block_smem, r["registers"],
-                         _build.blocks_per_sm(r["registers"], block_smem, threads))
+        kind, t, global_form, split = cuda_blend.KERNELS.get(name, (None,) * 4)
+        if t != tile:
+            continue
+        taken = cuda_blend.split_chunk(kind, tile, chunk) == split
+        if kind == "blend_fwd":
+            smem = cuda_blend.kernel_smem(chunk, budget, tile)[kind]
+        else:
+            replay = kind == "blend_bwd_replay"
+            smem = cuda_blend.bwd_smem(tile, chunk, budget, replay, global_form)
+            taken = taken and cuda_blend.bwd_global(tile, chunk, budget, replay) == global_form
+        block_smem, threads = smem + r["static_smem"], cuda_blend.threads(tile)
+        blocks = (_build.blocks_per_sm(r["registers"], block_smem, threads)
+                  if smem <= cuda_blend.MAX_SMEM else 0)
+        out[name] = (threads, block_smem, r["registers"], blocks, taken)
     return out
 
 
@@ -693,10 +737,12 @@ def replay_case(name, entries, counts, scalars, cfg, cot, stash_path=None) -> No
             "carries": torch.equal(torch.where(used, carries_r, 0.0),
                                    torch.where(used, carries, 0.0)),
             "gradients": torch.equal(grad_r, grad)}
-    print(f"[replay] {name}: budget {cfg.tile_budget} chunk {cfg.pallas_chunk} "
+    print(f"[replay] {name}: tile {cfg.tile} budget {cfg.tile_budget} chunk {cfg.pallas_chunk} "
           f"({cfg.tile_budget // cfg.pallas_chunk} chunks, up to {int(ndone.max())} processed, "
-          f"{cuda_blend.kernel_smem(cfg.pallas_chunk, cfg.tile_budget)['blend_bwd_replay']} B of "
-          f"shared memory per block): replay vs stash bit for bit: {same}")
+          f"the {cuda_blend.bwd_form(cfg, True)} form, "
+          f"{cuda_blend.kernel_smem(cfg.pallas_chunk, cfg.tile_budget, cfg.tile)['blend_bwd_replay']}"
+          f" B of shared memory per block; the stash backward's {cuda_blend.bwd_form(cfg, False)} "
+          f"form): replay vs stash bit for bit: {same}")
     if not all(same.values()):
         raise AssertionError(f"{name}: the replay backward differs from the stash path: {same}")
 
@@ -719,9 +765,112 @@ def backward_phase(dev) -> dict:
                               visible_budget=visible, pallas_chunk=chunk)
         entries, counts, scalars = windows(scene, cfg, cam)
         gen = torch.Generator().manual_seed(seed)
-        cot = torch.randn((cfg.num_tiles, cuda_blend.NUM_CHANNELS, 256), generator=gen).to(dev)
+        cot = torch.randn((cfg.num_tiles, cuda_blend.NUM_CHANNELS, cfg.tile ** 2),
+                          generator=gen).to(dev)
         replay_case(f"budget{budget}_chunk{chunk}", entries, counts, scalars, cfg, cot)
     return results
+
+
+# the envelope: configs the blend kernels took only at 16×16 tiles,
+# chunks up to 128 (backward) or 512 (forward) and replay shared memory up to
+# 232,448 B, on `lara_workload` from the bench camera: (name, tile, size,
+# budget, visible budget, chunk, what runs). "train": the stash forward and
+# backward against the plain version, the replay against the stash; "fwd":
+# the forward against the plain version; "replay": the replay in its global
+# form against the stash path bit for bit, and the forward against the plain
+# version (the plain autograd of these budgets would hold tens of GB); "all":
+# "fwd" and "train". The last four put both backwards' chunks past 512
+# entries (staged in pieces) at a size where the plain autograd fits (about
+# 16 GB): tile 16 in the shared form, tiles 32, 16 and 8 in the global form
+# of the stash backward and the replay (one chunk a tile, so both keep the
+# same hit bits)
+ENVELOPE = (
+    ("t32_train", 32, H, 512, 131072, 64, "train"),
+    ("t32_eval", 32, H, 2048, 262144, 64, "fwd"),
+    ("t32_replay_global", 32, H, 1024, 131072, 64, "replay"),
+    ("t16_replay_global", 16, H, 4096, 262144, 64, "replay"),
+    ("t16_chunk256", 16, H, 512, 131072, 256, "train"),
+    ("t16_chunk512", 16, H, 512, 131072, 512, "train"),
+    ("t16_chunk1024", 16, H, 2048, 262144, 1024, "fwd"),
+    ("t8", 8, 256, 32, 131072, 32, "all"),
+    ("t16_bwd_chunk1024", 16, 256, 1024, 131072, 1024, "train"),
+    ("t32_bwd_chunk1024", 32, 256, 1024, 131072, 1024, "train"),
+    ("t16_bwd_global", 16, 128, 4096, 131072, 4096, "train"),
+    ("t8_bwd_global", 8, 64, 16384, 131072, 16384, "train"),
+)
+
+
+def envelope_case(name, scene, cam, tile, size, budget, visible, chunk, runs, seed) -> list:
+    """One ENVELOPE config: its checks, and a case record for each kernel it
+    timed (kind, tile, budget, chunk, backward form, max_abs_err against the
+    plain version or the stash path, ms, plain_ms, bound)."""
+    cfg = RasterizeConfig(height=size, width=size, tile=tile, dup=3, tile_budget=budget,
+                          visible_budget=visible, pallas_chunk=chunk)
+    entries, counts, scalars = windows(scene, cfg, cam)
+    forms = {"blend_bwd": cuda_blend.bwd_form(cfg, False),
+             "blend_bwd_replay": cuda_blend.bwd_form(cfg, True)}
+    print(f"[envelope] {name}: tile {tile} at {size}², budget {budget}, chunk {chunk}, "
+          f"visible {visible}: {cfg.num_tiles} tiles, counts up to {int(counts.max())}; "
+          f"the stash backward's form {forms['blend_bwd']}, the replay's "
+          f"{forms['blend_bwd_replay']}")
+    if chunk > cuda_blend.MAX_STAGED and not int(counts.max()) > cuda_blend.MAX_STAGED:
+        raise AssertionError(f"{name}: no tile passes {cuda_blend.MAX_STAGED} entries, so no "
+                             f"chunk is staged in pieces")
+    torch.cuda.reset_peak_memory_stats()
+
+    def case(kind, err, ms, plain_ms, bnd, against="plain"):
+        return {"kind": kind, "tile": tile, "budget": budget, "chunk": chunk,
+                "form": forms.get(kind), "against": against, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1]}
+
+    out = []
+    if runs in ("fwd", "all"):
+        r = compare_case(name, entries, counts, scalars, cfg, timed=True)
+        out.append(case("blend_fwd", r["max_abs_err"], r["ms"], r["plain_ms"],
+                        (r["bound_ms"], r["bound_by"])))
+    if runs in ("train", "all"):
+        r = backward_case(name, entries, counts, scalars, cfg, seed, timed=True)
+        out += [case("blend_fwd_stash", r["fwd_max_abs_err"], r["fwd_stash_ms"],
+                     r["fwd_stash_plain_ms"], r["fwd_stash_bound"]),
+                case("blend_bwd", r["max_abs_err"], r["bwd_ms"], r["bwd_plain_ms"],
+                     r["bwd_bound"]),
+                case("blend_bwd_replay", r["max_abs_err"], r["replay_ms"], r["bwd_plain_ms"],
+                     r["replay_bound"])]
+    if runs == "replay":
+        compare_case(name, entries, counts, scalars, cfg)
+        gen = torch.Generator().manual_seed(seed)
+        cot = torch.randn((cfg.num_tiles, cuda_blend.NUM_CHANNELS, tile ** 2),
+                          generator=gen).to(entries.device)
+        _, carries, ndone = cuda_blend.blend_fwd(entries, counts, scalars, cfg, stash=True)
+        grad = cuda_blend.blend_bwd(entries, counts, scalars, carries, ndone, cot, cfg)
+        replay_case(name, entries, counts, scalars, cfg, cot, (carries, ndone, grad))
+        pairs = blend_pairs(counts, ndone, cfg)
+        ms = queued_ms(lambda: cuda_blend.blend_bwd_replay(entries, counts, scalars, cot, cfg),
+                       20)
+        stash_ms = queued_ms(lambda: cuda_blend.blend_bwd(entries, counts, scalars, carries,
+                                                          ndone, cot, cfg), 20)
+        bnd = bound(nbytes(entries, counts, scalars, cot, grad), BLEND_OPS["replay"] * pairs,
+                    F32_FLOPS)
+        print(f"[envelope] {name}: queued device ms per call: replay backward "
+              f"({forms['blend_bwd_replay']} form) {ms:.4f}, stash backward "
+              f"({forms['blend_bwd']} form) {stash_ms:.4f}; {pairs} processed entry-pixels "
+              f"(up to {int(ndone.max())} chunks a tile), bound {bnd[0]:.4f} ms ({bnd[1]})")
+        out.append(case("blend_bwd_replay", 0.0, ms, None, bnd, against="stash path"))
+    print(f"[envelope] {name}: peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+          f"GB")
+    return out
+
+
+def envelope_phase(dev) -> list:
+    """Every ENVELOPE config, each kernel against its plain version (or the
+    replay against the stash path), at the bars of the kernel and backward
+    phases; returns the case records."""
+    cam, scene = camera(dev), workload_scene(dev)
+    cases = []
+    for seed, args in enumerate(ENVELOPE, 20):
+        cases += envelope_case(args[0], scene, cam, *args[1:], seed)
+        torch.cuda.empty_cache()
+    return cases
 
 
 def flash_case(name, seed, b, l, h, hd, dtype, dev, masked=False, timed=False):
@@ -826,14 +975,14 @@ def flash_phase(dev) -> dict:
     return res
 
 
-def check_outputs(out: dict, n_views: int, views: int = 0):
-    """Shapes (B=1, `views` or 2·n_views views at 512²), finite values and
+def check_outputs(out: dict, n_views: int, views: int = 0, size: int = H):
+    """Shapes (B=1, `views` or 2·n_views views at size²), finite values and
     some coverage of a forward's outputs."""
     for key in ("image", "depth", "acc_map", "rend_normal", "rend_dist", "depth_normal"):
         for k in (key, key + "_fine"):
             want = {"image": (3,), "depth": (1,), "rend_normal": (3,),
                     "depth_normal": (3,)}.get(key, ())
-            shape = (1, views or 2 * n_views, H, W) + want
+            shape = (1, views or 2 * n_views, size, size) + want
             if tuple(out[k].shape) != shape:
                 raise AssertionError(f"{k}: shape {tuple(out[k].shape)} != {shape}")
             if not bool(torch.isfinite(out[k]).all()):
@@ -843,9 +992,10 @@ def check_outputs(out: dict, n_views: int, views: int = 0):
             raise AssertionError(f"{k} is zero everywhere")
 
 
-def serve_requests(net, batches, want: dict, tag: str):
-    """Requests through `make_forward`, each with exactly the launches in
-    `want`; returns (image_fine of the first, seconds per request)."""
+def serve_requests(net, batches, want: dict, tag: str, size: int = H):
+    """Requests through `make_forward` at size², each with exactly the
+    launches in `want`; returns (image_fine of the first, seconds per
+    request)."""
     n_views = net.cfg.n_views
     fwd = make_forward(net, with_fine=True)
     seconds, first = [], None
@@ -857,7 +1007,7 @@ def serve_requests(net, batches, want: dict, tag: str):
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         launched = {k: v - before[k] for k, v in launches().items()}
-        check_outputs(out, n_views)
+        check_outputs(out, n_views, size=size)
         if launched != want:
             raise AssertionError(f"{tag} request {i}: kernel launches {launched}, expected {want}")
         print(f"[{tag}] request {i}: {seconds[-1]:.4f} s, launches {launched}, max acc_map "
@@ -1263,12 +1413,18 @@ def truncation_case(dev) -> dict:
                                                          backend="reference")).image
         sync(dev)
         res = {"reference_s": time.perf_counter() - t0}
-        for name, train in (("train", True), ("eval", False)):
-            img = rasterize(*scene, cam, bg, production_config(REF_SIZE, train=train)).image
+        for name, train, tile in (("train", True, 16), ("eval", False, 16),
+                                  ("train_tile32", True, 32)):
+            cfg = production_config(REF_SIZE, train=train)
+            if tile != cfg.tile:    # the same entries per pixel: 0.5 at the train budget
+                cfg = dataclasses.replace(cfg, tile=tile,
+                                          tile_budget=cfg.tile_budget * tile ** 2 // cfg.tile ** 2)
+            img = rasterize(*scene, cam, bg, cfg).image
             res[f"psnr_{name}"] = psnr(img, ref)
     print(f"[raster tools] lara_workload at {REF_SIZE}²: the binned renders against the "
           f"reference (one render {res['reference_s']:.3f} s): PSNR train "
-          f"{res['psnr_train']}, eval {res['psnr_eval']} dB")
+          f"{res['psnr_train']}, eval {res['psnr_eval']} dB; train budget at tile 32 "
+          f"(512 entries a tile) {res['psnr_train_tile32']} dB")
     return res
 
 
@@ -1334,10 +1490,9 @@ def want_launches(cfg: Config, renders: int) -> dict:
     the blend's by the stash knob, and with flash attention one forward per
     ViT layer, once more in the remat recompute, and one backward."""
     want = {k: 0 for k in launches()}
-    if cfg.render.pallas_stash_carries:
-        want.update(blend_fwd_stash=renders, blend_bwd=renders)
-    else:
-        want.update(blend_fwd=renders, blend_bwd_replay=renders)
+    kinds = (("blend_fwd_stash", "blend_bwd") if cfg.render.pallas_stash_carries
+             else ("blend_fwd", "blend_bwd_replay"))
+    want.update({cuda_blend.launch_key(k, cfg.render.tile): renders for k in kinds})
     if cfg.model.flash_attn:
         depth = cfg.model.encoder_depth
         want.update(flash_fwd=depth * (2 if cfg.model.remat else 1), flash_bwd=depth)
@@ -1517,6 +1672,63 @@ def train_flagship_phase(dev, knobs: bool) -> dict:
     if not all(np.isfinite(list(vals.values()))) or launches()["blend_fwd"] != 4 * n_views:
         raise AssertionError(f"eval step: stats {vals}, launches {launches()}")
     print(f"[train-c] eval step: loss {vals['loss']:.5f} psnr_fine {vals['psnr_fine']:.3f}")
+    return res
+
+
+# the flagship at other tiles: (tile, size, train budget, eval
+# budget), base.yaml's 0.5 and 2 entries per pixel; tile 32 at 512², tile 8
+# at 256² (binning packs tile bounds in 5 bits: at most 32 tiles a side)
+TILE_PATHS = ((32, H, 512, 2048), (8, 256, 32, 128))
+
+
+def tile_path_phase(dev, tile: int, size: int, train_budget: int, eval_budget: int) -> dict:
+    """The flagship `Config()` with `render.tile` = tile and its budgets,
+    seeded random weights: one B=1 request through `make_forward` at size²,
+    then one B=3 fine micro-step with the stash and one with the replay
+    backward through `make_train_step` (from micro-step 2002), each with
+    exactly its kernel launches (the tile's instantiations), finite outputs
+    and stats, a gradient in every stage."""
+    base = Config()
+    cfg = dataclasses.replace(base, render=dataclasses.replace(
+        base.render, tile=tile, tile_budget=train_budget, eval_tile_budget=eval_budget))
+    tag = f"tile{tile}"
+    n_views, scenes = cfg.n_views, cfg.train.batch_size
+    net = LaRaNet(cfg, dtype=torch.bfloat16, device=dev,
+                  generator=torch.Generator().manual_seed(0))
+    none = {k: 0 for k in launches()}
+    reset_launches()
+    _, seconds = serve_requests(net, [make_batch(0, n_views, dev, size=size)],
+                                {**none, cuda_blend.launch_key("blend_fwd", tile): 4 * n_views},
+                                tag, size)
+    batch = make_batch(11, n_views, dev, scenes=scenes, size=size)
+    state = TrainState(net, cfg.train, max_iters=30000, step=2002)
+    step = make_train_step(net, state, True, cfg.train.grad_accum)
+    res = {"request_s": seconds[0]}
+    for mode, stash in (("stash", True), ("replay", False)):
+        net.cfg = dataclasses.replace(cfg, render=dataclasses.replace(
+            cfg.render, pallas_stash_carries=stash))
+        before = launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = step(batch)
+        torch.cuda.synchronize()
+        res[f"{mode}_s"] = time.perf_counter() - t0
+        launched = {k: v - before[k] for k, v in launches().items()}
+        want = want_launches(net.cfg, 2 * scenes * 2 * n_views)
+        if launched != want:
+            raise AssertionError(f"{tag} {mode} micro-step: launches {launched}, "
+                                 f"expected {want}")
+        vals = {k: v.item() for k, v in stats.items()}
+        if not all(np.isfinite(list(vals.values()))):
+            raise AssertionError(f"{tag} {mode} micro-step: non-finite stats {vals}")
+        stage_g = grads_by_stage(net) if stash else {}
+        print(f"[{tag}] fine micro-step at {size}² B={scenes} with the {mode} backward: "
+              f"{res[f'{mode}_s']:.3f} s, loss {vals['loss']:.5f}, launches "
+              + json.dumps({k: v for k, v in launched.items() if v})
+              + "".join(f" {k}={v:.3e}" for k, v in stage_g.items()))
+    res["launches"] = launches()
+    print(f"[{tag}] launches on the tile-{tile} path: "
+          + json.dumps({k: v for k, v in res["launches"].items() if v}))
     return res
 
 
@@ -2959,7 +3171,7 @@ def tp_phase(dev, tmp: str, store: str) -> dict:
 
 
 def kernel_records(kernel, backward, flash_res, serving, groups, binning, train, train_knobs,
-                   evaluation, infer, mvgen, dp, tp_res, raster) -> list:
+                   evaluation, infer, mvgen, dp, tp_res, raster, envelope, tile_paths) -> list:
     """The kernels line: each kernel's launches on its paths (the blend
     forward's on the serving (both stacks), evaluate, infer-dataset, mvgen, data- and
     tensor-parallel paths,
@@ -2969,7 +3181,11 @@ def kernel_records(kernel, backward, flash_res, serving, groups, binning, train,
     the four blend kernels' also on the raster tools' paths),
     its largest error against the plain
     version, its time beside the plain version's, the library call's (flash)
-    and its bound, at the path's shapes."""
+    and its bound, at the path's shapes. Each blend kernel also lists its
+    envelope cases (`cases`); the tile-32 and tile-8 instantiations are
+    records of their own, launched on their tile's path, timed at its
+    envelope configs (tile 32: the eval forward at budget 2048, the rest at
+    512 / 64; tile 8: 32 / 32 at 256²)."""
     bwd, fl, win = backward["train"], flash_res["train"], binning["train"]
     src, pallas = "lara_tpu_torch/csrc/", "lara_tpu/ops/rasterizer/pallas_blend.py"
 
@@ -2978,7 +3194,25 @@ def kernel_records(kernel, backward, flash_res, serving, groups, binning, train,
                 "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms}
 
-    return [
+    lines = {"blend_fwd": ":398", "blend_fwd_stash": ":398", "blend_bwd": ":457",
+             "blend_bwd_replay": ":432"}
+
+    def cases(kind, tile):
+        return [c for c in envelope if c["kind"] == kind and c["tile"] == tile]
+
+    def tile_records(tile):
+        out = []
+        for kind, line in lines.items():
+            timed = [c for c in cases(kind, tile) if c["plain_ms"] is not None][0]
+            r = rec(cuda_blend.launch_key(kind, tile), "blend_bwd.cu" if "bwd" in kind
+                    else "blend_fwd.cu", pallas + line,
+                    tile_paths[tile]["launches"][cuda_blend.launch_key(kind, tile)],
+                    max(c["max_abs_err"] for c in cases(kind, tile)), timed["ms"],
+                    timed["plain_ms"], (timed["bound_ms"], timed["bound_by"]))
+            out.append({**r, "tile": tile, "cases": cases(kind, tile)})
+        return out
+
+    records = [
         rec("blend_fwd", "blend_fwd.cu", pallas + ":398",
             serving["launches"]["blend_fwd"] + groups["launches"]["blend_fwd"]
             + evaluation["launches"]["blend_fwd"]
@@ -3017,6 +3251,9 @@ def kernel_records(kernel, backward, flash_res, serving, groups, binning, train,
             max(binning[c]["max_abs_err"] for c in ("train", "eval")), win["ms"],
             win["plain_ms"], (win["bound_ms"], win["bound_by"]), win["library_ms"]),
     ]
+    for r in records[:4]:
+        r.update(tile=16, cases=cases(r["name"], 16))
+    return records[:4] + tile_records(32) + tile_records(8) + records[4:]
 
 
 def main() -> int:
@@ -3044,6 +3281,9 @@ def main() -> int:
     check_hgmma()
     kernel = phase("forward kernel", kernel_phase, dev)
     backward = phase("backward kernels (stash and replay)", backward_phase, dev)
+    envelope = phase("envelope (tiles 8 and 32, chunks to the budget, the replay's global form)",
+                     envelope_phase, dev)
+    torch.cuda.empty_cache()
     flash_res = phase("flash attention", flash_phase, dev)
     serving = phase("serving (default, then flash attention)", slice_phase, dev)
     groups = phase("serving (n_groups [16, 8]: the unscanned stack)", groups_phase, dev, serving)
@@ -3063,6 +3303,12 @@ def main() -> int:
           f"{' '.join(f'{x:.3f}' for x in train_knobs['micro_s'])} peak "
           f"{train_knobs['peak_gb']:.2f} GB; + dots {train_knobs['dots_s']:.3f} s peak "
           f"{train_knobs['dots_peak_gb']:.2f} GB")
+    tile_paths = {}
+    for tile, size, train_budget, eval_budget in TILE_PATHS:
+        torch.cuda.empty_cache()
+        tile_paths[tile] = phase(f"tile {tile} (flagship at {size}², budgets {train_budget} / "
+                                 f"{eval_budget})", tile_path_phase, dev, tile, size,
+                                 train_budget, eval_budget)
 
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="lara_trainer_") as tmp:
@@ -3108,7 +3354,8 @@ def main() -> int:
     print("[tp] launches on the tensor-parallel paths: "
           + json.dumps({k: v for k, v in tp_res["launches"].items() if v}))
     records = kernel_records(kernel, backward, flash_res, serving, groups, binning, train,
-                             train_knobs, evaluation, infer, mvgen, dp, tp_res, raster)
+                             train_knobs, evaluation, infer, mvgen, dp, tp_res, raster,
+                             envelope, tile_paths)
     for r in records:
         if r["launches"] <= 0:
             raise AssertionError(f"{r['name']} was not launched on its path")

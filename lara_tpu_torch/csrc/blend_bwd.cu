@@ -10,11 +10,12 @@
 // vector-Jacobian product is derived by hand, in the suffix-sum form of the
 // CUDA 2DGS backward.
 //
-// What it computes. Per tile, from the entries [K, 13], the cotangent of the
-// raw accumulators [10, 256] (the median's is ignored: its gradient is
-// defined as 0), the forward's stash [budget/chunk + 1, 4, 256] and its
+// What it computes. Per tile of P = tile^2 pixels (tiles 8, 16 and 32: one
+// template instantiation each), from the entries [K, 13], the cotangent of
+// the raw accumulators [10, P] (the median's is ignored: its gradient is
+// defined as 0), the forward's stash [budget/chunk + 1, 4, P] and its
 // processed-chunk count ndone: the gradient of every entry row [K, 13]
-// (center_cam, au, bv, rgb, opacity), summed over the tile's 256 pixels.
+// (center_cam, au, bv, rgb, opacity), summed over the tile's P pixels.
 // Rows of chunks >= ndone and entries >= count are written as zeros, so
 // every row is written exactly once.
 //
@@ -73,8 +74,9 @@
 // SM) spent about 4.8 SM clocks per entry-pixel at the train config, most
 // of it in shuffles.
 //
-// What the design does about it:
-//  - one 128-thread block per tile, two pixels per thread (p and p + 128):
+// What the design does about it (the numbers are tile 16's):
+//  - one block of P / 2 threads per tile (128 at tile 16), two pixels per
+//    thread (p and p + P / 2):
 //    a thread sums its two pixels' partials in registers before any
 //    shuffle, and the two pixels are independent chains;
 //  - a transposed warp reduction (warp_sum19): at each butterfly level a
@@ -88,15 +90,21 @@
 //    memory per block falls from 108 KB to 28 KB (staged records 5,120 B,
 //    bits and end values 4,096 B, the per-warp partials of the chunk
 //    [4][chunk][19] 19,456 B: 28,672 B), and registers, not shared memory,
-//    set the blocks per SM (__launch_bounds__ asks for four: 16 warps of
-//    two pixels each); a sub-block re-walk into a [16, 256] T_k buffer
+//    set the blocks per SM (__launch_bounds__ asks for 16 warps of two
+//    pixels each: four blocks at tile 16, sixteen at tile 8, one at tile 32);
+//    a sub-block re-walk into a [16, 256] T_k buffer
 //    (45 KB per block) was measured first and was slower;
 //  - the forward walk takes two entries at a time and computes their four
 //    hits (two entries, two pixels) before the four decisions, so the
 //    scheduler has four independent chains between two T updates; a pair
 //    with no opacity (the fine stage's deselected surfels) skips them;
-//  - the per-warp partials of the chunk are chained into rows once per
-//    chunk, one thread per entry, after one barrier;
+//  - the per-warp partials are chained into rows once per reduction group,
+//    one thread per entry, after one barrier: the whole chunk at tile 16 up
+//    to chunk 128, one 32-entry sub-block at tiles 8 and 32 and past 128, so
+//    the partials' shared memory does not grow with the chunk;
+//  - a chunk longer than 512 entries is staged in pieces of 512, walked
+//    forward in order and in reverse backward; the early exit and the stash
+//    slots stay per chunk, as in the TPU kernel;
 //  - blocks take the tiles heaviest first (blend_common.cuh:
 //    tile_of_block), so no heavy tile is left for the last wave.
 // Five blocks per SM (the cotangents and totals moved to shared memory, 93
@@ -121,11 +129,18 @@
 // the H100). The reverse walk then runs chunk by chunk from those bits, with
 // the totals (A, M1, M2) from the final carry, so each entry-pixel's hit is
 // computed once forward and, where the pixel composited the entry, once in
-// reverse, as in the stash mode. Bits past a pixel's stop are 0. The launch
-// is refused only where the block's shared memory (smem_bytes) exceeds
-// 232,448 B. With the optional outputs non-null the replay also writes what
-// it rebuilt, in the stash forward's layout, for a check against the stash
-// path.
+// reverse, as in the stash mode. Bits past a pixel's stop are 0. With the
+// optional outputs non-null the replay also writes what it rebuilt, in the
+// stash forward's layout, for a check against the stash path.
+//
+// The global form. Where the block's shared memory (smem_bytes) would pass
+// the 232,448 B a block may ask for (the replay at budget 4096 and chunk 64
+// at tile 16, 286,720 B; at budget 1024 and chunk 64 at tile 32; the stash
+// mode at chunks past 512 at tile 32), the kept hit bits and end values go
+// to a scratch buffer in device memory instead, one region per tile, which
+// the wrapper allocates: the same kernel (kGlobal), with each thread
+// reading back only the words it wrote, so nothing else changes. The form
+// follows (tile, budget, chunk, mode) alone.
 
 #include "blend_common.cuh"
 
@@ -133,9 +148,21 @@ namespace {
 
 using namespace blend;
 
-constexpr int kWarps = kThreads / 32;
 constexpr int kSub = 32;              // entries per sub-block: one word of hit bits
 constexpr int kPartials = 19;
+constexpr int kMaxSmem = 232448;      // dynamic shared memory a block may ask for on sm_90
+
+// Entries whose per-warp partials are reduced together: the chunk, up to
+// this many, so that the partials do not grow with the chunk. At tile 16,
+// 128: a chunk up to 128 reduces once, after one barrier (4 warps x 128 x
+// 19 partials: 38,912 B at most); at tiles 8 and 32 one sub-block (1 and 16
+// warps: 2,432 and 38,912 B).
+__host__ __device__ constexpr int reduce_group(int tile) { return tile == 16 ? 128 : kSub; }
+
+// Blocks per SM the launch bounds ask for: 16 warps each, as at tile 16
+// (4 blocks of 128 threads), so a thread keeps up to 128 registers.
+template <int kTile>
+__host__ __device__ constexpr int min_blocks() { return 16 / TileShape<kTile>::kWarps; }
 // per-entry partial gradients, summed over the tile's pixels
 enum Partial {
   dN0, dN1, dN2, dNc, dAu0, dAu1, dAu2, dCau, dBv0, dBv1, dBv2, dCbv,
@@ -211,8 +238,9 @@ __device__ __forceinline__ bool decide(const Entry& en, const Hit& h, Carry& c, 
 
 // The forward walk over the m staged entries of one chunk, from the carry c
 // and Tc of the thread's two pixels q0, q1: per 32-entry sub-block sb, the
-// hit bits of each pixel into hits[sb][256] and Tc at the sub-block's end
-// into tend[sb][256] (pixel tid and tid + 128). Two entries at a time: their
+// hit bits of each pixel into hits[sb][P] and Tc at the sub-block's end
+// into tend[sb][P] (pixel tid and tid + P / 2); each thread reads back only
+// its own pixels' words. Two entries at a time: their
 // four hits before the four decisions, each pixel's in entry order, so the
 // scheduler has four independent chains between two T updates. A pair with
 // no opacity (the fine stage's deselected surfels) records no hit without
@@ -220,18 +248,19 @@ __device__ __forceinline__ bool decide(const Entry& en, const Hit& h, Carry& c, 
 // the pairs met when both of a thread's pixels have stopped made both modes
 // slower on the H100, on the random and the trained-statistics scenes, so
 // the hits are computed.
-template <bool kMoments>
+template <int kTile, bool kMoments>
 __device__ __forceinline__ void walk_chunk(const float4* rec, int m, const Pixel& q0,
                                            const Pixel& q1, Carry (&c)[2], float (&Tc)[2],
                                            unsigned* hits, float* tend, const Params& p,
                                            const View& v) {
+  constexpr int kPixels = TileShape<kTile>::kPixels, kThreads = TileShape<kTile>::kThreads;
   const int tid = threadIdx.x;
   unsigned bits0 = 0u, bits1 = 0u;
   auto record = [&](int j, bool hit0, bool hit1) {
     bits0 |= static_cast<unsigned>(hit0) << (j % kSub);
     bits1 |= static_cast<unsigned>(hit1) << (j % kSub);
     if (j % kSub == kSub - 1 || j == m - 1) {
-      const int at = (j / kSub) * kTilePixels + tid;
+      const int at = (j / kSub) * kPixels + tid;
       hits[at] = bits0;
       hits[at + kThreads] = bits1;
       tend[at] = Tc[0];
@@ -367,33 +396,57 @@ __host__ __device__ inline int kept_chunks(int budget, int chunk, bool replay) {
 }
 
 // Shared memory of one block, in bytes (cuda_blend.kernel_smem mirrors it):
-// the staged records, the kept chunks' hit bits and end values, the
-// per-warp partials of a chunk.
-size_t smem_bytes(int budget, int chunk, bool replay) {
+// the staged records (a piece of at most kMaxStaged entries), the kept
+// chunks' hit bits and end values (in the shared form only), the per-warp
+// partials of a reduction group.
+size_t smem_bytes(int tile, int budget, int chunk, bool replay, bool global) {
+  const size_t pixels = static_cast<size_t>(tile) * tile, warps = pixels / 64;
   const size_t nsub = (chunk + kSub - 1) / kSub;
-  return sizeof(float4) * kRecords * chunk
-         + sizeof(float) * (2 * kept_chunks(budget, chunk, replay) * nsub * kTilePixels
-                            + (size_t)kWarps * chunk * kPartials);
+  const size_t staged = chunk < kMaxStaged ? chunk : kMaxStaged;
+  const size_t group = chunk < reduce_group(tile) ? chunk : reduce_group(tile);
+  const size_t bits = global ? 0 : 2 * kept_chunks(budget, chunk, replay) * nsub * pixels;
+  return sizeof(float4) * kRecords * staged + sizeof(float) * (bits + warps * group * kPartials);
 }
 
 // kReplay false: stash and ndone_arr are the stash forward's outputs, read.
 // kReplay true: they are optional outputs (null to skip) of the replay walk.
-template <bool kReplay>
-__global__ void __launch_bounds__(kThreads, 4) blend_bwd_kernel(
-    const float* __restrict__ entries, const int* __restrict__ counts,
-    const float* __restrict__ scalars, float* __restrict__ stash, int* __restrict__ ndone_arr,
-    const float* __restrict__ cot, float* __restrict__ grad, Params p) {
+// kGlobal: the hit bits and end values live in `scratch`, [T][2][kept][nsub]
+// [P] words, instead of shared memory (each thread reads back only what it
+// wrote, so the form changes where they live and nothing else).
+// kSplit: the chunk is longer than reduce_group(kTile) entries, so it is
+// reduced in groups and, past kMaxStaged, staged in pieces. A template
+// parameter, so that shorter chunks fold the loops to one pass: at tile 16
+// the stash mode keeps 118 registers (123 with the loops at run time).
+template <int kTile, bool kReplay, bool kGlobal, bool kSplit>
+__global__ void __launch_bounds__(TileShape<kTile>::kThreads, min_blocks<kTile>())
+    blend_bwd_kernel(const float* __restrict__ entries, const int* __restrict__ counts,
+                     const float* __restrict__ scalars, float* __restrict__ stash,
+                     int* __restrict__ ndone_arr, const float* __restrict__ cot,
+                     float* __restrict__ grad, unsigned* __restrict__ scratch, Params p) {
+  constexpr int kPixels = TileShape<kTile>::kPixels, kThreads = TileShape<kTile>::kThreads;
+  constexpr int kWarps = TileShape<kTile>::kWarps;
   extern __shared__ float4 smem4[];
   const int c = p.chunk;
   const int nsub = (c + kSub - 1) / kSub;
   const int kept = kept_chunks(p.budget, c, kReplay);
-  float4* rec = smem4;                                               // [chunk][kRecords]
-  unsigned* hits = reinterpret_cast<unsigned*>(rec + c * kRecords);  // [kept][nsub][256] bits
-  float* tend = reinterpret_cast<float*>(hits + kept * nsub * kTilePixels);  // and end Tc
-  float* red = tend + kept * nsub * kTilePixels;                     // [kWarps][chunk][19]
+  float4* rec = smem4;                                    // [min(chunk, kMaxStaged)][kRecords]
+  unsigned* hits;                                         // [kept][nsub][P] bits
+  float* tend;                                            // and end Tc
+  float* red;                                             // [kWarps][group][19]
+  if constexpr (kGlobal) {
+    red = reinterpret_cast<float*>(rec + min(c, kMaxStaged) * kRecords);
+  } else {
+    hits = reinterpret_cast<unsigned*>(rec + min(c, kMaxStaged) * kRecords);
+    tend = reinterpret_cast<float*>(hits + kept * nsub * kPixels);
+    red = tend + kept * nsub * kPixels;
+  }
 
   // the partials' buffer is first written after the staging's barrier
-  const int t = tile_of_block(counts, gridDim.x, p.budget, reinterpret_cast<int*>(red));
+  const int t = tile_of_block<kThreads>(counts, gridDim.x, p.budget, reinterpret_cast<int*>(red));
+  if constexpr (kGlobal) {
+    hits = scratch + static_cast<size_t>(t) * 2 * kept * nsub * kPixels;
+    tend = reinterpret_cast<float*>(hits + static_cast<size_t>(kept) * nsub * kPixels);
+  }
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int slot = slot19(lane);
@@ -402,22 +455,22 @@ __global__ void __launch_bounds__(kThreads, 4) blend_bwd_kernel(
   const View v = make_view(scalars, p);
   const float* tile_rows = entries + static_cast<size_t>(t) * p.budget * kPackCols;
   float* st = stash == nullptr ? nullptr
-                               : stash + static_cast<size_t>(t) * slots * 4 * kTilePixels + tid;
+                               : stash + static_cast<size_t>(t) * slots * 4 * kPixels + tid;
 
   PixelGrad s[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     s[h].q = make_pixel(t, tid + h * kThreads, p, v);
-    const float* g = cot + static_cast<size_t>(t) * kNumChannels * kTilePixels + tid + h * kThreads;
+    const float* g = cot + static_cast<size_t>(t) * kNumChannels * kPixels + tid + h * kThreads;
     s[h].g_r = g[0];
-    s[h].g_g = g[kTilePixels];
-    s[h].g_b = g[2 * kTilePixels];
-    s[h].g_a = g[3 * kTilePixels];
-    s[h].g_d = g[4 * kTilePixels];
-    s[h].g_n0 = g[6 * kTilePixels];
-    s[h].g_n1 = g[7 * kTilePixels];
-    s[h].g_n2 = g[8 * kTilePixels];
-    s[h].g_dist = g[9 * kTilePixels];
+    s[h].g_g = g[kPixels];
+    s[h].g_b = g[2 * kPixels];
+    s[h].g_a = g[3 * kPixels];
+    s[h].g_d = g[4 * kPixels];
+    s[h].g_n0 = g[6 * kPixels];
+    s[h].g_n1 = g[7 * kPixels];
+    s[h].g_n2 = g[8 * kPixels];
+    s[h].g_dist = g[9 * kPixels];
     s[h].S = 0.0f;
   }
 
@@ -430,21 +483,27 @@ __global__ void __launch_bounds__(kThreads, 4) blend_bwd_kernel(
       if (st != nullptr) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          float* sh = st + (ci * 4) * kTilePixels + h * kThreads;
+          float* sh = st + (ci * 4) * kPixels + h * kThreads;
           sh[0] = cr[h].T;
-          sh[kTilePixels] = cr[h].A;
-          sh[2 * kTilePixels] = cr[h].M1;
-          sh[3 * kTilePixels] = cr[h].M2;
+          sh[kPixels] = cr[h].A;
+          sh[2 * kPixels] = cr[h].M1;
+          sh[3 * kPixels] = cr[h].M2;
         }
       }
     };
     int ci = 0;
     for (int k0 = 0; k0 < n; k0 += c) {
+      const int m = min(c, n - k0);
       put_carry(ci);
-      stage_chunk(rec, tile_rows + static_cast<size_t>(k0) * kPackCols, min(c, n - k0), v);
-      __syncthreads();
-      const int at = ci * nsub * kTilePixels;
-      walk_chunk<true>(rec, min(c, n - k0), s[0].q, s[1].q, cr, Tc, hits + at, tend + at, p, v);
+      for (int s0 = 0;; s0 += kMaxStaged) {  // one piece unless kSplit
+        const int ms = kSplit ? min(kMaxStaged, m - s0) : m;
+        stage_chunk(rec, tile_rows + static_cast<size_t>(k0 + s0) * kPackCols, ms, v);
+        __syncthreads();
+        const int at = (ci * nsub + s0 / kSub) * kPixels;
+        walk_chunk<kTile, true>(rec, ms, s[0].q, s[1].q, cr, Tc, hits + at, tend + at, p, v);
+        if (!kSplit || s0 + kMaxStaged >= m) break;
+        __syncthreads();  // the piece is read
+      }
       ++ci;
       // also the barrier before the next staging (here or in the reverse walk)
       if (__syncthreads_count(cr[0].T >= p.t_min || cr[1].T >= p.t_min) == 0) break;
@@ -462,97 +521,176 @@ __global__ void __launch_bounds__(kThreads, 4) blend_bwd_kernel(
     ndone = ndone_arr[t];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const float* sh = st + (ndone * 4) * kTilePixels + h * kThreads;
-      s[h].a_tot = sh[kTilePixels];
-      s[h].m1_tot = sh[2 * kTilePixels];
-      s[h].m2_tot = sh[3 * kTilePixels];
+      const float* sh = st + (ndone * 4) * kPixels + h * kThreads;
+      s[h].a_tot = sh[kPixels];
+      s[h].m1_tot = sh[2 * kPixels];
+      s[h].m2_tot = sh[3 * kPixels];
     }
   }
 
+  // rows no pixel took: in chunks the walk never reached, and (kSplit; the
+  // one-group code zeroes them with the chunk's rows) past the count
   float* tile_grad = grad + static_cast<size_t>(t) * p.budget * kPackCols;
-  for (int i = ndone * c * kPackCols + tid; i < p.budget * kPackCols; i += kThreads)
+  const int zero_from = kSplit ? min(n, ndone * c) : ndone * c;
+  for (int i = zero_from * kPackCols + tid; i < p.budget * kPackCols; i += kThreads)
     tile_grad[i] = 0.0f;
 
   for (int ci = ndone - 1; ci >= 0; --ci) {
     const int k0 = ci * c;
     const int m = min(c, n - k0);
-    stage_chunk(rec, tile_rows + static_cast<size_t>(k0) * kPackCols, m, v);
-    __syncthreads();
+    const int last = kSplit ? ((m - 1) / kMaxStaged) * kMaxStaged : 0;  // the last piece
+    // the reverse walk starts at the last piece (staged here before the
+    // stash walk's place: staged below it, the replay took 127 registers at
+    // tile 16, not 125)
+    if constexpr (kReplay) {
+      stage_chunk(rec, tile_rows + static_cast<size_t>(k0 + last) * kPackCols, m - last, v);
+      __syncthreads();
+    }
 
     // which entries each pixel composited (one bit each) and Tc at the end
     // of each sub-block: in stash mode from a walk of the chunk from its
     // carry-in, in replay mode kept from the tile's walk
-    const int base = kReplay ? ci * nsub * kTilePixels : 0;
+    const int base = kReplay ? ci * nsub * kPixels : 0;
     if constexpr (!kReplay) {
       Carry cw[2];
       float Tc[2];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        cw[h].T = Tc[h] = st[(ci * 4) * kTilePixels + h * kThreads];
+        cw[h].T = Tc[h] = st[(ci * 4) * kPixels + h * kThreads];
         cw[h].A = cw[h].M1 = cw[h].M2 = 0.0f;
       }
-      walk_chunk<false>(rec, m, s[0].q, s[1].q, cw, Tc, hits, tend, p, v);
+      for (int s0 = 0;; s0 += kMaxStaged) {  // one piece unless kSplit
+        const int ms = kSplit ? min(kMaxStaged, m - s0) : m;
+        stage_chunk(rec, tile_rows + static_cast<size_t>(k0 + s0) * kPackCols, ms, v);
+        __syncthreads();
+        const int at = (s0 / kSub) * kPixels;
+        walk_chunk<kTile, false>(rec, ms, s[0].q, s[1].q, cw, Tc, hits + at, tend + at, p, v);
+        if (!kSplit || s0 + kMaxStaged >= m) break;
+        __syncthreads();  // the piece is read
+      }
     }
 
-    // reverse walk, a sub-block at a time from its end's Tc: T_k of each
-    // composited entry by division, per-entry partials summed over the two
-    // pixels, then over the warp
-    for (int j0 = ((m - 1) / kSub) * kSub; j0 >= 0; j0 -= kSub) {
-      const int at = base + (j0 / kSub) * kTilePixels + tid;
-      const unsigned w0 = hits[at], w1 = hits[at + kThreads];
-      float tc0 = tend[at], tc1 = tend[at + kThreads];
-      for (int j = min(m, j0 + kSub) - 1; j >= j0; --j) {
-        const bool hit0 = (w0 >> (j - j0)) & 1u, hit1 = (w1 >> (j - j0)) & 1u;
-        float* rj = red + (warp * c + j) * kPartials;
-        if (__any_sync(0xffffffffu, hit0 || hit1)) {
+    // reverse walk, piece by piece (the last one is staged: above in replay
+    // mode, by the walk in stash mode), a reduction group at a time, a
+    // sub-block at a time from its end's Tc: T_k of each composited entry by
+    // division, per-entry partials summed over the two pixels, then over the
+    // warp; after each group one thread per entry chains them into its row.
+    // Without kSplit: one piece, one group of the whole chunk, whose rows
+    // past m are zeroed here
+    const int group = kSplit ? reduce_group(kTile) : c;
+    for (int s0 = last;; s0 -= kMaxStaged) {
+      const int ms = kSplit ? min(kMaxStaged, m - s0) : m;
+      if (s0 != last) {  // the previous group's barrier freed the records
+        stage_chunk(rec, tile_rows + static_cast<size_t>(k0 + s0) * kPackCols, ms, v);
+        __syncthreads();
+      }
+      for (int g0 = kSplit ? ((ms - 1) / group) * group : 0;; g0 -= group) {
+        const int gm = kSplit ? min(group, ms - g0) : m;
+        for (int j0 = g0 + ((gm - 1) / kSub) * kSub; j0 >= g0; j0 -= kSub) {
+          const int at = base + ((s0 + j0) / kSub) * kPixels + tid;
+          const unsigned w0 = hits[at], w1 = hits[at + kThreads];
+          float tc0 = tend[at], tc1 = tend[at + kThreads];
+          for (int j = min(g0 + gm, j0 + kSub) - 1; j >= j0; --j) {
+            const bool hit0 = (w0 >> (j - j0)) & 1u, hit1 = (w1 >> (j - j0)) & 1u;
+            float* rj = red + (warp * group + j - g0) * kPartials;
+            if (__any_sync(0xffffffffu, hit0 || hit1)) {
+              float d[kPartials];
+#pragma unroll
+              for (int f = 0; f < kPartials; ++f) d[f] = 0.0f;
+              const Entry en = load_entry(rec, j);
+              if (hit0) add_partials(en, s[0], tc0, p, v, d);
+              if (hit1) add_partials(en, s[1], tc1, p, v, d);
+              const float total = warp_sum19(d, lane);
+              if (slot >= 0) rj[slot] = total;
+            } else if (slot >= 0) {
+              rj[slot] = 0.0f;
+            }
+          }
+        }
+        __syncthreads();
+
+        // one thread per entry: sum the warps, chain into the 13 columns
+        for (int j = tid; j < (kSplit ? gm : c); j += kThreads) {
+          const size_t row = static_cast<size_t>(k0 + s0 + g0 + j) * kPackCols;
+          float* out = tile_grad + row;
+          if (j >= gm) {
+            for (int f = 0; f < kPackCols; ++f) out[f] = 0.0f;
+            continue;
+          }
           float d[kPartials];
 #pragma unroll
-          for (int f = 0; f < kPartials; ++f) d[f] = 0.0f;
-          const Entry en = load_entry(rec, j);
-          if (hit0) add_partials(en, s[0], tc0, p, v, d);
-          if (hit1) add_partials(en, s[1], tc1, p, v, d);
-          const float total = warp_sum19(d, lane);
-          if (slot >= 0) rj[slot] = total;
-        } else if (slot >= 0) {
-          rj[slot] = 0.0f;
+          for (int f = 0; f < kPartials; ++f) {
+            float sum = 0.0f;
+#pragma unroll
+            for (int wi = 0; wi < kWarps; ++wi) sum += red[(wi * group + j) * kPartials + f];
+            d[f] = sum;
+          }
+          chain_row(d, tile_rows + row, v, out);
         }
+        // barrier before the next group, piece or chunk overwrites shared memory
+        __syncthreads();
+        if (!kSplit || g0 == 0) break;
       }
+      if (!kSplit || s0 == 0) break;
     }
-    __syncthreads();
-
-    // one thread per entry: sum the warps, chain into the 13 columns
-    for (int j = tid; j < c; j += kThreads) {
-      float* out = tile_grad + static_cast<size_t>(k0 + j) * kPackCols;
-      if (j >= m) {
-        for (int f = 0; f < kPackCols; ++f) out[f] = 0.0f;
-        continue;
-      }
-      float d[kPartials];
-#pragma unroll
-      for (int f = 0; f < kPartials; ++f) {
-        float sum = 0.0f;
-#pragma unroll
-        for (int wi = 0; wi < kWarps; ++wi) sum += red[(wi * c + j) * kPartials + f];
-        d[f] = sum;
-      }
-      chain_row(d, tile_rows + static_cast<size_t>(k0 + j) * kPackCols, v, out);
-    }
-    // barrier before the next chunk overwrites shared memory
-    __syncthreads();
   }
 }
 
-template <bool kReplay>
+template <int kTile, bool kReplay, bool kGlobal>
 int launch(const float* entries, const int* counts, const float* scalars,
-           float* stash, int* ndone, const float* cot, float* grad,
+           float* stash, int* ndone, const float* cot, float* grad, unsigned* scratch,
            int num_tiles, const Params& p, cudaStream_t stream) {
-  const size_t smem = smem_bytes(p.budget, p.chunk, kReplay);
+  const size_t smem = smem_bytes(kTile, p.budget, p.chunk, kReplay, kGlobal);
+  auto kernel = p.chunk > reduce_group(kTile) ? blend_bwd_kernel<kTile, kReplay, kGlobal, true>
+                                              : blend_bwd_kernel<kTile, kReplay, kGlobal, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      blend_bwd_kernel<kReplay>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  blend_bwd_kernel<kReplay><<<num_tiles, kThreads, smem, stream>>>(
-      entries, counts, scalars, stash, ndone, cot, grad, p);
+  kernel<<<num_tiles, TileShape<kTile>::kThreads, smem, stream>>>(
+      entries, counts, scalars, stash, ndone, cot, grad, scratch, p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int kTile>
+int launch_tile(const float* entries, const int* counts, const float* scalars,
+                float* stash, int* ndone, const float* cot, float* grad, bool replay,
+                unsigned* scratch, int num_tiles, const Params& p, cudaStream_t s) {
+  if (scratch != nullptr)
+    return replay ? launch<kTile, true, true>(entries, counts, scalars, stash, ndone, cot, grad,
+                                              scratch, num_tiles, p, s)
+                  : launch<kTile, false, true>(entries, counts, scalars, stash, ndone, cot, grad,
+                                               scratch, num_tiles, p, s);
+  return replay ? launch<kTile, true, false>(entries, counts, scalars, stash, ndone, cot, grad,
+                                             scratch, num_tiles, p, s)
+                : launch<kTile, false, false>(entries, counts, scalars, stash, ndone, cot, grad,
+                                              scratch, num_tiles, p, s);
+}
+
+// The form follows (tile, budget, chunk, mode) alone: the shared form where
+// its shared memory fits kMaxSmem, else the global form, which needs
+// `scratch`, and only then.
+int run(const float* entries, const int* counts, const float* scalars, float* stash,
+        int* ndone, const float* cot, float* grad, int replay, unsigned* scratch,
+        int num_tiles, int tiles_x, int tile, int width, int height, int budget, int chunk,
+        float alpha_min, float t_min, float near_cull, float dist_near, float dist_far,
+        float filter2d_invsq, void* stream) {
+  if (chunk <= 0 || budget % chunk != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (!replay && (stash == nullptr || ndone == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool global = smem_bytes(tile, budget, chunk, replay != 0, false) > kMaxSmem;
+  if (global != (scratch != nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  Params p{tiles_x, tile, width, height, budget, chunk,
+           alpha_min, t_min, near_cull, dist_near, dist_far, filter2d_invsq};
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (tile) {
+    case 8: return launch_tile<8>(entries, counts, scalars, stash, ndone, cot, grad,
+                                  replay != 0, scratch, num_tiles, p, s);
+    case 16: return launch_tile<16>(entries, counts, scalars, stash, ndone, cot, grad,
+                                    replay != 0, scratch, num_tiles, p, s);
+    case 32: return launch_tile<32>(entries, counts, scalars, stash, ndone, cot, grad,
+                                    replay != 0, scratch, num_tiles, p, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -561,8 +699,10 @@ int launch(const float* entries, const int* counts, const float* scalars,
 // int32 [num_tiles] are inputs, from lara_blend_fwd. replay 1: the kernel
 // rebuilds them, and writes them there where the pointers are non-null.
 // cot f32 [num_tiles, 10, tile*tile]; grad f32 [num_tiles, budget, 13]
-// (every element written). tile must be 16, chunk must divide budget, and
-// the block's shared memory (smem_bytes) must fit sm_90's 232,448 B.
+// (every element written). tile must be 8, 16 or 32 and chunk must divide
+// budget. This entry point runs the shared form: it refuses a config whose
+// block would need more than 232,448 B of shared memory (smem_bytes), which
+// lara_blend_bwd_global takes.
 extern "C" int lara_blend_bwd(const float* entries, const int* counts,
                               const float* scalars, float* stash, int* ndone,
                               const float* cot, float* grad, int replay,
@@ -571,15 +711,25 @@ extern "C" int lara_blend_bwd(const float* entries, const int* counts,
                               float alpha_min, float t_min, float near_cull,
                               float dist_near, float dist_far,
                               float filter2d_invsq, void* stream) {
-  if (tile * tile != kTilePixels || chunk <= 0 || budget % chunk != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (smem_bytes(budget, chunk, replay != 0) > 232448)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (!replay && (stash == nullptr || ndone == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  Params p{tiles_x, tile, width, height, budget, chunk,
-           alpha_min, t_min, near_cull, dist_near, dist_far, filter2d_invsq};
-  auto s = static_cast<cudaStream_t>(stream);
-  return replay ? launch<true>(entries, counts, scalars, stash, ndone, cot, grad, num_tiles, p, s)
-                : launch<false>(entries, counts, scalars, stash, ndone, cot, grad, num_tiles, p, s);
+  return run(entries, counts, scalars, stash, ndone, cot, grad, replay, nullptr, num_tiles,
+             tiles_x, tile, width, height, budget, chunk, alpha_min, t_min, near_cull,
+             dist_near, dist_far, filter2d_invsq, stream);
+}
+
+// The global form, for exactly the configs lara_blend_bwd refuses for their
+// shared memory: the same arguments, and `scratch`, num_tiles x 2 x kept x
+// ceil(chunk / 32) x tile*tile 32-bit words (kept = budget / chunk in
+// replay mode, else 1), which the kernel writes before it reads.
+extern "C" int lara_blend_bwd_global(const float* entries, const int* counts,
+                                     const float* scalars, float* stash, int* ndone,
+                                     const float* cot, float* grad, int replay,
+                                     int num_tiles, int tiles_x, int tile, int width,
+                                     int height, int budget, int chunk,
+                                     float alpha_min, float t_min, float near_cull,
+                                     float dist_near, float dist_far,
+                                     float filter2d_invsq, void* stream, void* scratch) {
+  if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return run(entries, counts, scalars, stash, ndone, cot, grad, replay,
+             static_cast<unsigned*>(scratch), num_tiles, tiles_x, tile, width, height, budget,
+             chunk, alpha_min, t_min, near_cull, dist_near, dist_far, filter2d_invsq, stream);
 }

@@ -26,9 +26,20 @@ namespace blend {
 
 constexpr int kPackCols = 13;
 constexpr int kNumChannels = 10;
-constexpr int kTilePixels = 256;            // 16x16 tiles
-constexpr int kThreads = 128;               // two pixels per thread: p and p + 128
 constexpr int kRecords = 5;                 // float4 per staged entry
+// entries staged in shared memory at a time: a longer chunk is staged in
+// pieces of this many (40,960 B of records)
+constexpr int kMaxStaged = 512;
+
+// One block per kTile x kTile tile, two pixels per thread: pixel p and
+// p + kThreads, rows y and y + kTile / 2. The kernels are instantiated at
+// tiles 8, 16 and 32: 32, 128 and 512 threads.
+template <int kTile>
+struct TileShape {
+  static constexpr int kPixels = kTile * kTile;
+  static constexpr int kThreads = kPixels / 2;
+  static constexpr int kWarps = kThreads / 32;
+};
 
 struct Params {
   int tiles_x, tile, width, height, budget, chunk;
@@ -42,17 +53,22 @@ struct Params {
 // block. Found by a binary search over the count value and a scan over the
 // tiles of that value: about ten block-wide sums of per-thread registers,
 // against a tile's tens of microseconds. Every thread of the block calls it
-// (it synchronises). More than kThreads * kOrderPerThread tiles keep the
-// launch order. `scratch` is kOrderScratch ints of shared memory that no
-// thread touches again before the block's next barrier (the backward lends
-// its dynamic shared memory: a static array would add to every block's
-// shared memory, and the replay backward at budget 512 fits 4 blocks per
-// SM with no byte to spare).
-constexpr int kOrderPerThread = 16;
-constexpr int kOrderScratch = kThreads / 32 + 1;
+// (it synchronises). More than kThreads * order_per_thread(kThreads) tiles
+// (at least 1,024, the most that binning's 5-bit tile bounds allow) keep
+// the launch order. `scratch` is order_scratch(kThreads) ints of shared
+// memory that no thread touches again before the block's next barrier (the
+// backward lends its dynamic shared memory: a static array would add to
+// every block's shared memory, and the replay backward at tile 16 and
+// budget 512 fits 4 blocks per SM with no byte to spare).
+__host__ __device__ constexpr int order_per_thread(int threads) {
+  return threads * 16 >= 1024 ? 16 : 1024 / threads;
+}
+__host__ __device__ constexpr int order_scratch(int threads) { return threads / 32 + 1; }
 
+template <int kThreads>
 __device__ __forceinline__ int tile_of_block(const int* __restrict__ counts, int num_tiles,
                                              int budget, int* scratch) {
+  constexpr int kOrderPerThread = order_per_thread(kThreads);
   int* warp_sums = scratch;  // [kThreads / 32]
   int& picked = scratch[kThreads / 32];
   if (num_tiles > kThreads * kOrderPerThread) return blockIdx.x;

@@ -5,7 +5,8 @@
 // (_fwd_kernel -> _fwd_one_tile -> _chunk_fn, launched by _run_fwd), with
 // and without its stash outputs (_run_fwd(stash=True)).
 //
-// What it computes. For each 16x16 tile, the depth-sorted window of packed
+// What it computes. For each tile (8x8, 16x16 or 32x32: one template
+// instantiation each, P = tile^2 pixels), the depth-sorted window of packed
 // rows [K, 13] (center_cam, au, bv, rgb, opacity) is composited front to
 // back into 10 raw accumulators per pixel: rgb, alpha, depth sum, median
 // depth, camera-space normal, distortion. Per (entry, pixel): ray-plane hit
@@ -23,14 +24,16 @@
 // spent about 1.6 SM clocks per entry-pixel at the eval config.
 //
 // What the design does about it:
-//  - one 128-thread block per 16x16 tile, two pixels per thread (p and
-//    p + 128, rows y and y + 8): each entry is read once for two pixels,
-//    and the two pixels' hits are independent chains;
+//  - one block of P / 2 threads per tile (128 at 16x16), two pixels per
+//    thread (p and p + P / 2, rows y and y + tile / 2): each entry is read
+//    once for two pixels, and the two pixels' hits are independent chains;
 //  - a chunk of entries is staged in shared memory as five float4 records
 //    per entry (blend_common.cuh: stage_chunk), with the per-entry values
 //    that do not depend on the pixel (unit normal flipped toward the camera,
 //    screen center, n.c, au.c, bv.c) computed there once; all threads stage,
 //    two per entry; a thread reads an entry as five broadcast 16-byte loads;
+//    a chunk longer than 512 entries is staged in pieces of 512 (40,960 B),
+//    with the exit test still at the chunk's end;
 //  - an entry with no opacity (the fine stage's deselected surfels) is
 //    skipped before its hits, a branch uniform over the block; the hits of
 //    an entry do not depend on T: both pixels' hits are computed before
@@ -51,7 +54,7 @@
 // walks the processed chunks in reverse and needs, per pixel, each chunk's
 // carry-in and the final carry. So the kernel writes the carry
 // (T, A, M1, M2) at the start of every chunk it processes, into slot ci of
-// stash [T, budget/chunk + 1, 4, 256], then the carry after the last chunk
+// stash [T, budget/chunk + 1, 4, P], then the carry after the last chunk
 // into slot ndone, and the processed-chunk count into ndone[tile] (the
 // iteration at which the __syncthreads_count exit fires, or budget/chunk
 // runs out). Slots past ndone are not written. A pixel that dies inside a
@@ -102,13 +105,18 @@ __device__ __forceinline__ void composite(Acc& a, const Entry& en, const Hit& h,
   a.c.T = t_next;
 }
 
-__global__ void __launch_bounds__(kThreads) blend_fwd_kernel(
+// kSplit: the chunk is longer than kMaxStaged entries and is staged in
+// pieces. A template parameter, so that shorter chunks run the one-piece
+// code: 80 registers at tile 16 (91 with the piece loop at run time).
+template <int kTile, bool kSplit>
+__global__ void __launch_bounds__(TileShape<kTile>::kThreads) blend_fwd_kernel(
     const float* __restrict__ entries, const int* __restrict__ counts,
     const float* __restrict__ scalars, float* __restrict__ out, float* __restrict__ stash,
     int* __restrict__ ndone, Params p) {
-  extern __shared__ float4 rec[];  // [chunk][kRecords]
-  __shared__ int order[kOrderScratch];
-  const int t = tile_of_block(counts, gridDim.x, p.budget, order);
+  constexpr int kPixels = TileShape<kTile>::kPixels, kThreads = TileShape<kTile>::kThreads;
+  extern __shared__ float4 rec[];  // [min(chunk, kMaxStaged)][kRecords]
+  __shared__ int order[order_scratch(kThreads)];
+  const int t = tile_of_block<kThreads>(counts, gridDim.x, p.budget, order);
   const int tid = threadIdx.x;
   const int n = min(counts[t], p.budget);
   const View v = make_view(scalars, p);
@@ -120,26 +128,23 @@ __global__ void __launch_bounds__(kThreads) blend_fwd_kernel(
   // stash slot ci of this tile and pixel: stash[t][ci][j][pixel]
   const int slots = p.budget / p.chunk + 1;
   auto stash_carry = [&](int ci) {
-    float* s = stash + (static_cast<size_t>(t) * slots + ci) * 4 * kTilePixels + tid;
+    float* s = stash + (static_cast<size_t>(t) * slots + ci) * 4 * kPixels + tid;
     auto put = [&](const Carry& c, float* sh) {
       sh[0] = c.T;
-      sh[kTilePixels] = c.A;
-      sh[2 * kTilePixels] = c.M1;
-      sh[3 * kTilePixels] = c.M2;
+      sh[kPixels] = c.A;
+      sh[2 * kPixels] = c.M1;
+      sh[3 * kPixels] = c.M2;
     };
     put(a0.c, s);
     put(a1.c, s + kThreads);
   };
 
   const float* tile_rows = entries + static_cast<size_t>(t) * p.budget * kPackCols;
-  int ci = 0;
-  for (int k0 = 0; k0 < n; k0 += p.chunk) {
-    const int m = min(p.chunk, n - k0);
-    if (stash != nullptr) stash_carry(ci);
-    ++ci;
-    stage_chunk(rec, tile_rows + static_cast<size_t>(k0) * kPackCols, m, v);
+  // composite the ms entries staged from row k
+  auto walk = [&](int k, int ms) {
+    stage_chunk(rec, tile_rows + static_cast<size_t>(k) * kPackCols, ms, v);
     __syncthreads();
-    for (int j = 0; j < m; ++j) {
+    for (int j = 0; j < ms; ++j) {
       if (!(a0.c.T >= p.t_min || a1.c.T >= p.t_min)) break;
       const Entry en = load_entry(rec, j);
       if (!(en.ctr.w > 0.0f)) continue;  // never composited (the fine stage's deselected)
@@ -147,6 +152,22 @@ __global__ void __launch_bounds__(kThreads) blend_fwd_kernel(
       const Hit h1 = entry_hit(en, q1, p.filter2d_invsq);
       composite(a0, en, h0, p, v);
       composite(a1, en, h1, p, v);
+    }
+  };
+  int ci = 0;
+  for (int k0 = 0; k0 < n; k0 += p.chunk) {
+    const int m = min(p.chunk, n - k0);
+    if (stash != nullptr) stash_carry(ci);
+    ++ci;
+    if constexpr (kSplit) {
+      // staged in pieces; the exit test stays at the chunk's end, as in the
+      // TPU kernel
+      for (int s0 = 0; s0 < m; s0 += kMaxStaged) {
+        if (s0 > 0) __syncthreads();  // the previous piece is read
+        walk(k0 + s0, min(kMaxStaged, m - s0));
+      }
+    } else {
+      walk(k0, m);
     }
     // barrier before the next chunk overwrites shared memory; the tile is
     // done once no pixel has transmittance left
@@ -157,34 +178,52 @@ __global__ void __launch_bounds__(kThreads) blend_fwd_kernel(
     if (tid == 0) ndone[t] = ci;
   }
 
-  float* o = out + static_cast<size_t>(t) * kNumChannels * kTilePixels + tid;
+  float* o = out + static_cast<size_t>(t) * kNumChannels * kPixels + tid;
   auto write = [&](const Acc& a, float* oh) {
-    oh[0 * kTilePixels] = a.r;
-    oh[1 * kTilePixels] = a.g;
-    oh[2 * kTilePixels] = a.b;
-    oh[3 * kTilePixels] = a.c.A;
-    oh[4 * kTilePixels] = a.dsum;
-    oh[5 * kTilePixels] = a.med;
-    oh[6 * kTilePixels] = a.nx;
-    oh[7 * kTilePixels] = a.ny;
-    oh[8 * kTilePixels] = a.nz;
-    oh[9 * kTilePixels] = a.dist;
+    oh[0 * kPixels] = a.r;
+    oh[1 * kPixels] = a.g;
+    oh[2 * kPixels] = a.b;
+    oh[3 * kPixels] = a.c.A;
+    oh[4 * kPixels] = a.dsum;
+    oh[5 * kPixels] = a.med;
+    oh[6 * kPixels] = a.nx;
+    oh[7 * kPixels] = a.ny;
+    oh[8 * kPixels] = a.nz;
+    oh[9 * kPixels] = a.dist;
   };
   write(a0, o);
   write(a1, o + kThreads);
 }
 
-// At least this much dynamic shared memory per block, so that at most five
-// blocks share an SM: with six (80 registers allow them) the H100 ran up to
-// 14 % slower, on synthetic scenes and on a serving request's windows, and
-// no case faster.
-constexpr size_t kMinSmem = 233472 / 6 - 1024 + 16;
+// At least this much dynamic shared memory per block, so that at most 20
+// warps share an SM: at tile 16, five blocks (with six, which 80 registers
+// allow, the H100 ran up to 14 % slower, on synthetic scenes and on a
+// serving request's windows, and no case faster); at tile 8, twenty blocks
+// of one warp. At tile 32 the registers already hold a 16-warp block to one
+// per SM.
+template <int kTile>
+constexpr size_t min_smem() {
+  constexpr int blocks = 20 / TileShape<kTile>::kWarps;
+  return blocks >= 2 ? 233472 / (blocks + 1) - 1024 + 16 : 0;
+}
+
+template <int kTile>
+int launch(const float* entries, const int* counts, const float* scalars, float* out,
+           float* stash, int* ndone, int num_tiles, const Params& p, cudaStream_t stream) {
+  const bool split = p.chunk > kMaxStaged;
+  const size_t records = sizeof(float4) * kRecords * (split ? kMaxStaged : p.chunk);
+  const size_t smem = records > min_smem<kTile>() ? records : min_smem<kTile>();
+  auto kernel = split ? blend_fwd_kernel<kTile, true> : blend_fwd_kernel<kTile, false>;
+  kernel<<<num_tiles, TileShape<kTile>::kThreads, smem, stream>>>(
+      entries, counts, scalars, out, stash, ndone, p);
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
 // `stash` and `ndone` may be null (no stash); otherwise stash is f32
-// [num_tiles, budget/chunk + 1, 4, 256] and ndone int32 [num_tiles].
-// tile must be 16.
+// [num_tiles, budget/chunk + 1, 4, tile*tile] and ndone int32 [num_tiles].
+// tile must be 8, 16 or 32; chunk must divide budget.
 extern "C" int lara_blend_fwd(const float* entries, const int* counts,
                               const float* scalars, float* out, float* stash,
                               int* ndone, int num_tiles,
@@ -193,12 +232,14 @@ extern "C" int lara_blend_fwd(const float* entries, const int* counts,
                               float t_min, float near_cull, float dist_near,
                               float dist_far, float filter2d_invsq,
                               void* stream) {
-  if (tile * tile != kTilePixels) return static_cast<int>(cudaErrorInvalidValue);
+  if (chunk <= 0 || budget % chunk != 0) return static_cast<int>(cudaErrorInvalidValue);
   Params p{tiles_x, tile, width, height, budget, chunk,
            alpha_min, t_min, near_cull, dist_near, dist_far, filter2d_invsq};
-  const size_t records = sizeof(float4) * kRecords * chunk;
-  const size_t smem = records > kMinSmem ? records : kMinSmem;
-  blend_fwd_kernel<<<num_tiles, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      entries, counts, scalars, out, stash, ndone, p);
-  return static_cast<int>(cudaGetLastError());
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (tile) {
+    case 8: return launch<8>(entries, counts, scalars, out, stash, ndone, num_tiles, p, s);
+    case 16: return launch<16>(entries, counts, scalars, out, stash, ndone, num_tiles, p, s);
+    case 32: return launch<32>(entries, counts, scalars, out, stash, ndone, num_tiles, p, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -12,6 +12,7 @@ A kernel that cannot be built raises: nothing falls back.
 
     libs = build_library()        # {"blend_fwd": CDLL, ..., "tile_windows": CDLL}
     build_other(csrc)             # the same from another checkout's sources
+    other_log(csrc)               # and their nvcc logs
     kernel_resources(build_log)   # {"blend_fwd_kernel": {"registers": 64, ...}, ...}
     serialised_wgmma(build_log)   # kernels whose wgmma ptxas serialised
 """
@@ -41,18 +42,20 @@ _COMMON = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _BLEND_FLAGS = _COMMON + ["--fmad=false"]
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-# name -> (source, nvcc flags, C entry point, argtypes)
+_BLEND_BWD_ARGS = [_P] * 7 + [_I] * 8 + [_F] * 6 + [_P]
+# name -> (source, nvcc flags, {C entry point: argtypes})
 _KERNELS = {
-    "blend_fwd": ("blend_fwd.cu", _BLEND_FLAGS, "lara_blend_fwd",
-                  [_P] * 6 + [_I] * 7 + [_F] * 6 + [_P]),
-    "blend_bwd": ("blend_bwd.cu", _BLEND_FLAGS, "lara_blend_bwd",
-                  [_P] * 7 + [_I] * 8 + [_F] * 6 + [_P]),
-    "flash_fwd": ("flash_fwd.cu", _COMMON, "lara_flash_fwd",
-                  [_P] * 6 + [_I] * 5 + [_L] * 6 + [_F, _I, _P]),
-    "flash_bwd": ("flash_bwd.cu", _COMMON, "lara_flash_bwd",
-                  [_P] * 11 + [_I] * 5 + [_L] * 6 + [_F, _I, _P]),
-    "tile_windows": ("tile_windows.cu", _COMMON, "lara_tile_windows",
-                     [_P, _I, _P, _I, _I, _P, _P]),
+    "blend_fwd": ("blend_fwd.cu", _BLEND_FLAGS,
+                  {"lara_blend_fwd": [_P] * 6 + [_I] * 7 + [_F] * 6 + [_P]}),
+    "blend_bwd": ("blend_bwd.cu", _BLEND_FLAGS,
+                  {"lara_blend_bwd": _BLEND_BWD_ARGS,
+                   "lara_blend_bwd_global": _BLEND_BWD_ARGS + [_P]}),
+    "flash_fwd": ("flash_fwd.cu", _COMMON,
+                  {"lara_flash_fwd": [_P] * 6 + [_I] * 5 + [_L] * 6 + [_F, _I, _P]}),
+    "flash_bwd": ("flash_bwd.cu", _COMMON,
+                  {"lara_flash_bwd": [_P] * 11 + [_I] * 5 + [_L] * 6 + [_F, _I, _P]}),
+    "tile_windows": ("tile_windows.cu", _COMMON,
+                     {"lara_tile_windows": [_P, _I, _P, _I, _I, _P, _P]}),
 }
 _libs: dict = {}
 build_log = ""      # nvcc's output (registers, spills, warnings) of every library
@@ -99,13 +102,21 @@ def build_other(csrc: Path) -> dict:
     """The libraries of another checkout's kernel sources (its
     `lara_tpu_torch/csrc`, with the same C entry points), built as
     `build_library` builds the port's and returned without replacing them:
-    for timing two versions of a kernel in one process."""
-    return _build(Path(csrc))[0]
+    for timing two versions of a kernel in one process. An entry point the
+    other checkout lacks (one added since) is left out; the port's own
+    libraries must have every one."""
+    return _build(Path(csrc), strict=False)[0]
 
 
-def _build(csrc: Path) -> tuple:
+def other_log(csrc: Path) -> str:
+    """The nvcc logs of the libraries `build_other(csrc)` built."""
+    return "".join(library_path(name, Path(csrc)).with_suffix(".log").read_text()
+                   for name in _KERNELS)
+
+
+def _build(csrc: Path, strict: bool = True) -> tuple:
     paths, procs = {}, {}
-    for name, (src, flags, _, _) in _KERNELS.items():
+    for name, (src, flags, _) in _KERNELS.items():
         paths[name] = library_path(name, csrc)
         if not (paths[name].exists() and paths[name].with_suffix(".log").exists()):
             _BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -122,17 +133,20 @@ def _build(csrc: Path) -> tuple:
         os.replace(tmp, paths[name])
     log = "".join(paths[name].with_suffix(".log").read_text() for name in _KERNELS)
     libs = {}
-    for name, (_, _, sym, argtypes) in _KERNELS.items():
+    for name, (_, _, entries) in _KERNELS.items():
         lib = ctypes.CDLL(str(paths[name]))
-        fn = getattr(lib, sym)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        for sym, argtypes in entries.items():
+            fn = getattr(lib, sym) if strict else getattr(lib, sym, None)
+            if fn is not None:
+                fn.argtypes, fn.restype = argtypes, ctypes.c_int
         libs[name] = lib
     return libs, log
 
 
 def kernel_name(mangled: str) -> str:
-    """`blend_bwd_kernel<1>` from the mangled name of a kernel in an
-    anonymous namespace, as ptxas prints it."""
+    """`blend_bwd_kernel<16, 1, 0>` from the mangled name of a kernel in an
+    anonymous namespace, as ptxas prints it (its integer and bool template
+    arguments)."""
     m = re.match(r"_ZN(\d+)", mangled)
     if not m:
         return mangled
@@ -141,8 +155,11 @@ def kernel_name(mangled: str) -> str:
     if not m:
         return mangled
     name = rest[m.end():m.end() + int(m.group(1))]
-    t = re.match(r"IL\w(\d+)E", rest[m.end() + int(m.group(1)):])
-    return f"{name}<{t.group(1)}>" if t else name
+    t = re.match(r"I((?:L\w\d+E)+)E", rest[m.end() + int(m.group(1)):])
+    if not t:
+        return name
+    args = re.findall(r"L\w(\d+)E", t.group(1))
+    return f"{name}<{', '.join(args)}>"
 
 
 def kernel_resources(log: str) -> dict:

@@ -18,9 +18,16 @@ blend, unnormalized depth).
     versions, as in the TPU kernel. A kernel that cannot be built or
     launched raises: nothing falls back.
 
-Each wrapper counts its launches in `LAUNCHES` (forward, forward with
-stash, backward from the stash, replay backward). The libraries are built
-by `lara_tpu_torch/ops/_build.py`.
+The kernels are instantiated at tiles 8, 16 and 32 (`TILES`; one block of
+tile²/2 threads per tile); another tile raises on a CUDA tensor. Each
+wrapper counts its launches in `LAUNCHES` (forward, forward with stash,
+backward from the stash, replay backward), per tile: `launch_key` names
+the tile-16 counts as before ("blend_fwd") and the others with the tile
+("blend_fwd_t32"). The backward has two forms, chosen by (tile, budget,
+chunk, mode) alone (`bwd_form`): the hit bits and end values of the
+chunks it keeps live in shared memory where that fits a block's 232,448 B,
+else in a scratch buffer the wrapper allocates. The libraries are built by
+`lara_tpu_torch/ops/_build.py`.
 """
 
 from __future__ import annotations
@@ -32,43 +39,103 @@ from lara_tpu_torch.ops.rasterizer.types import RasterizeConfig
 
 NUM_CHANNELS = 10   # rgb3 + alpha + depth_sum + depth_med + normal3 + dist
 PACK_COLS = 13
-MAX_CHUNK = 512     # 5 staged float4 per entry: 40 KB of shared memory at 512
-# the backward's shared memory grows with the chunk (kernel_smem): 56 KB at 128
-MAX_BWD_CHUNK = 128
-# dynamic shared memory a block may ask for on sm_90; the replay backward,
-# which keeps every chunk's hit bits, is refused past it (blend_bwd.cu)
+TILES = (8, 16, 32)
+KINDS = ("blend_fwd", "blend_fwd_stash", "blend_bwd", "blend_bwd_replay")
+# dynamic shared memory a block may ask for on sm_90; a backward whose kept
+# hit bits would pass it takes the global form (blend_bwd.cu)
 MAX_SMEM = 232448
-LAUNCHES = {"blend_fwd": 0, "blend_fwd_stash": 0, "blend_bwd": 0,
-            "blend_bwd_replay": 0}
-# the kernel behind each launch count, as ptxas names it in the build log
-KERNELS = {"blend_fwd_kernel": "blend_fwd", "blend_bwd_kernel<0>": "blend_bwd",
-           "blend_bwd_kernel<1>": "blend_bwd_replay"}
-# threads per block (one 16×16 tile, two pixels per thread) of each kernel
-THREADS = {"blend_fwd": 128, "blend_bwd": 128, "blend_bwd_replay": 128}
+MAX_STAGED = 512    # entries staged at a time: a longer chunk is staged in pieces
 RECORD = 20         # f32 per staged entry (blend_common.cuh: five float4)
 SUB = 32            # entries per sub-block of the backward: one word of hit bits
 PARTIALS = 19       # per-entry partial gradients summed over a tile's pixels
-# the forward asks for at least this much, so that at most five blocks share
-# an SM (blend_fwd.cu, kMinSmem)
-FWD_MIN_SMEM = 233472 // 6 - 1024 + 16
 
 
-def kernel_smem(chunk: int, budget: int | None = None) -> dict:
+def launch_key(kind: str, tile: int) -> str:
+    """The `LAUNCHES` key of kernel `kind` at `tile`."""
+    return kind if tile == 16 else f"{kind}_t{tile}"
+
+
+LAUNCHES = {launch_key(k, t): 0 for t in TILES for k in KINDS}
+# the kernel behind each instantiation, as ptxas names it in the build log:
+# (launch kind, tile, global form, split: the chunk staged in pieces or
+# reduced in groups, `split_chunk`)
+KERNELS = {f"blend_fwd_kernel<{t}, {s}>": ("blend_fwd", t, False, bool(s))
+           for t in TILES for s in (0, 1)}
+KERNELS.update({f"blend_bwd_kernel<{t}, {r}, {g}, {s}>": (KINDS[2 + r], t, bool(g), bool(s))
+                for t in TILES for r in (0, 1) for g in (0, 1) for s in (0, 1)})
+
+
+def threads(tile: int) -> int:
+    """Threads per block of every blend kernel: two pixels each."""
+    return tile * tile // 2
+
+
+def fwd_min_smem(tile: int) -> int:
+    """Dynamic shared memory the forward asks for at least, so that at most
+    20 warps share an SM (blend_fwd.cu, min_smem): 5 blocks at tile 16, 20
+    at tile 8; none at tile 32, whose registers allow one block."""
+    blocks = 20 // (threads(tile) // 32)
+    return 233472 // (blocks + 1) - 1024 + 16 if blocks >= 2 else 0
+
+
+def reduce_group(tile: int) -> int:
+    """Entries whose per-warp partials the backward reduces together, at
+    most (blend_bwd.cu, reduce_group)."""
+    return 128 if tile == 16 else SUB
+
+
+def split_chunk(kind: str, tile: int, chunk: int) -> bool:
+    """Whether kernel `kind` runs its split instantiation at `chunk`: the
+    forward stages a chunk past MAX_STAGED in pieces, the backward reduces
+    a chunk past `reduce_group` in groups (blend_fwd.cu, blend_bwd.cu)."""
+    return chunk > (MAX_STAGED if kind.startswith("blend_fwd") else reduce_group(tile))
+
+
+def _kept(chunk: int, budget: int, replay: bool) -> int:
+    return budget // chunk if replay else 1
+
+
+def bwd_smem(tile: int, chunk: int, budget: int, replay: bool, global_form: bool) -> int:
+    """`blend_bwd.cu:smem_bytes`: the staged records (at most MAX_STAGED
+    entries), the hit bits and end transmittance of each 32-entry sub-block
+    of one chunk (stash mode) or of every chunk of the budget (replay mode)
+    for the tile's pixels, in the shared form only, and the per-warp
+    partials of a reduction group."""
+    pixels, nsub = tile * tile, -(-chunk // SUB)
+    bits = 0 if global_form else 2 * _kept(chunk, budget, replay) * nsub * pixels
+    return 4 * (RECORD * min(chunk, MAX_STAGED) + bits
+                + pixels // 64 * min(chunk, reduce_group(tile)) * PARTIALS)
+
+
+def bwd_global(tile: int, chunk: int, budget: int, replay: bool) -> bool:
+    """Whether the backward takes its global form at this config: the shared
+    form would ask for more than MAX_SMEM."""
+    return bwd_smem(tile, chunk, budget, replay, False) > MAX_SMEM
+
+
+def bwd_form(cfg: RasterizeConfig, replay: bool) -> str:
+    """"shared" or "global": where the backward keeps its hit bits."""
+    return "global" if bwd_global(cfg.tile, cfg.pallas_chunk, cfg.tile_budget, replay) else "shared"
+
+
+def scratch_words(cfg: RasterizeConfig, replay: bool) -> int:
+    """32-bit words of the global form's scratch: per tile, the hit bits and
+    end values of every sub-block of the kept chunks."""
+    nsub = -(-cfg.pallas_chunk // SUB)
+    return (cfg.num_tiles * 2 * _kept(cfg.pallas_chunk, cfg.tile_budget, replay) * nsub
+            * cfg.tile * cfg.tile)
+
+
+def kernel_smem(chunk: int, budget: int | None = None, tile: int = 16) -> dict:
     """Dynamic shared memory per block (bytes) of each blend kernel at
-    `pallas_chunk` = chunk and `tile_budget` = budget (default: one chunk),
-    as its launch asks for it (`blend_fwd.cu`: the staged records, at least
-    FWD_MIN_SMEM; `blend_bwd.cu:smem_bytes`: the staged records, the hit
-    bits and end transmittance of each sub-block of one chunk (stash mode)
-    or of every chunk of the budget (replay mode) for the tile's 256
-    pixels, and the per-warp partials of the chunk)."""
-    nsub = -(-chunk // SUB)
-    warps = THREADS["blend_bwd"] // 32
-
-    def bwd(kept):
-        return 4 * (RECORD * chunk + 2 * kept * nsub * 256 + warps * chunk * PARTIALS)
-
-    return {"blend_fwd": max(4 * RECORD * chunk, FWD_MIN_SMEM), "blend_bwd": bwd(1),
-            "blend_bwd_replay": bwd((budget or chunk) // chunk)}
+    `pallas_chunk` = chunk, `tile_budget` = budget (default: one chunk) and
+    `tile`, as its launch asks for it: the forward's staged records, at
+    least `fwd_min_smem`; each backward mode's `bwd_smem` in the form it
+    takes there (`bwd_global`)."""
+    budget = budget or chunk
+    bwd = {kind: bwd_smem(tile, chunk, budget, replay, bwd_global(tile, chunk, budget, replay))
+           for kind, replay in (("blend_bwd", False), ("blend_bwd_replay", True))}
+    return {"blend_fwd": max(4 * RECORD * min(chunk, MAX_STAGED), fwd_min_smem(tile)), **bwd}
 
 
 def reset_launches() -> None:
@@ -86,12 +153,16 @@ def _check_inputs(entries, counts, scalars, cfg: RasterizeConfig):
                          f"{tuple(counts.shape)}")
     if scalars.shape != (2,) or scalars.dtype != torch.float32:
         raise ValueError("scalars must be f32 [2] (tan fov x, tan fov y)")
-    if not 0 < cfg.pallas_chunk <= MAX_CHUNK or k % cfg.pallas_chunk:
+    if cfg.pallas_chunk <= 0 or k % cfg.pallas_chunk:
         raise ValueError(f"pallas_chunk {cfg.pallas_chunk} must divide the "
-                         f"tile budget {k} and be at most {MAX_CHUNK}")
-    if p > 1024:
-        raise ValueError("one thread per pixel: tile² must be ≤ 1024")
+                         f"tile budget {k}")
     return t, p
+
+
+def _check_tile(cfg: RasterizeConfig) -> None:
+    if cfg.tile not in TILES:
+        raise ValueError(f"the blend kernels take tiles of 8, 16 and 32 pixels, "
+                         f"not {cfg.tile}")
 
 
 def _cuda_args(dev, *tensors):
@@ -114,8 +185,7 @@ def blend_fwd(entries, counts, scalars, cfg: RasterizeConfig, stash: bool = Fals
     [T, budget/chunk + 1, 4, P] (slots past ndone unwritten) and the
     processed-chunk counts ndone int32 [T]."""
     t, p = _check_inputs(entries, counts, scalars, cfg)
-    if p != 256:
-        raise ValueError("the blend kernels take 16×16 tiles")
+    _check_tile(cfg)
     entries, counts, scalars = _cuda_args(entries.device, entries, counts, scalars)
     dev = entries.device
     lib = _build.build_library()["blend_fwd"]
@@ -133,22 +203,14 @@ def blend_fwd(entries, counts, scalars, cfg: RasterizeConfig, stash: bool = Fals
             None if ndone is None else ndone.data_ptr(),
             *_raster_args(cfg), stream)
     _build.raise_on(err, "blend_fwd")
-    LAUNCHES["blend_fwd_stash" if stash else "blend_fwd"] += 1
+    LAUNCHES[launch_key("blend_fwd_stash" if stash else "blend_fwd", cfg.tile)] += 1
     return (out, carries, ndone) if stash else out
 
 
 def _launch_bwd(entries, counts, scalars, carries, ndone, cot,
                 cfg: RasterizeConfig, replay: bool) -> torch.Tensor:
-    t, p = _check_inputs(entries, counts, scalars, cfg)
-    if cfg.pallas_chunk > MAX_BWD_CHUNK or p != 256:
-        raise ValueError(f"the blend backward takes 16×16 tiles and "
-                         f"pallas_chunk ≤ {MAX_BWD_CHUNK}")
-    if replay:
-        smem = kernel_smem(cfg.pallas_chunk, cfg.tile_budget)["blend_bwd_replay"]
-        if smem > MAX_SMEM:
-            raise ValueError(f"the replay backward keeps the hit bits of every chunk in shared "
-                             f"memory: {smem} B at tile_budget {cfg.tile_budget} and "
-                             f"pallas_chunk {cfg.pallas_chunk}, more than {MAX_SMEM}")
+    _check_inputs(entries, counts, scalars, cfg)
+    _check_tile(cfg)
     dev = entries.device
     entries, counts, scalars, cot = _cuda_args(
         dev, entries, counts, scalars, cot.to(torch.float32))
@@ -156,16 +218,20 @@ def _launch_bwd(entries, counts, scalars, carries, ndone, cot,
         carries, ndone = _cuda_args(dev, carries, ndone)
     lib = _build.build_library()["blend_bwd"]
     grad = torch.empty_like(entries)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.lara_blend_bwd(
-            entries.data_ptr(), counts.data_ptr(), scalars.data_ptr(),
+    args = [entries.data_ptr(), counts.data_ptr(), scalars.data_ptr(),
             None if carries is None else carries.data_ptr(),
             None if ndone is None else ndone.data_ptr(), cot.data_ptr(),
-            grad.data_ptr(), int(replay), *_raster_args(cfg), stream)
-    name = "blend_bwd_replay" if replay else "blend_bwd"
-    _build.raise_on(err, name)
-    LAUNCHES[name] += 1
+            grad.data_ptr(), int(replay), *_raster_args(cfg)]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if bwd_form(cfg, replay) == "global":
+            scratch = torch.empty((scratch_words(cfg, replay),), dtype=torch.int32, device=dev)
+            err = lib.lara_blend_bwd_global(*args, stream, scratch.data_ptr())
+        else:
+            err = lib.lara_blend_bwd(*args, stream)
+    kind = "blend_bwd_replay" if replay else "blend_bwd"
+    _build.raise_on(err, kind)
+    LAUNCHES[launch_key(kind, cfg.tile)] += 1
     return grad
 
 

@@ -15,8 +15,8 @@ class RasterizeConfig:
     RasterizeConfig that the port's backends read.
 
     height/width: output image extent in pixels (multiples of `tile`).
-    tile:        square tile edge in pixels (16 → 256 px per tile, one CUDA
-                 thread per pixel).
+    tile:        square tile edge in pixels (16 → 256 px per tile); the CUDA
+                 blend kernels take 8, 16 and 32 (two pixels per thread).
     dup:         each surfel claims up to dup×dup tiles; its screen radius
                  is clamped to (dup-1)*tile/2 px.
     tile_budget: max depth-sorted entries composited per tile.

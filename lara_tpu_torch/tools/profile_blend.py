@@ -26,9 +26,10 @@ raster configs with chunk 64, it prints:
   5. the window kernel on `lara_workload`'s sorted keys at K 128 and 512,
      beside a kernel that does nothing (`torch.cuda._sleep(0)`, the floor
      of any queued launch) and the bound;
-  6. each blend kernel's registers and spills (from the build log), its
-     threads and shared memory per block at chunk 64 (budgets 128 and 512),
-     and the blocks per SM they allow.
+  6. each tile-16 blend kernel's registers and spills (from the build log),
+     its threads and shared memory per block at chunk 64 (budgets 128 and
+     512), and the blocks per SM they allow; with `--parent`, the parent's
+     registers and spills too.
 With `--parent DIR`, the root of another checkout of the repository (for
 example the parent commit unpacked by `git archive`), the kernels are also
 built from its `lara_tpu_torch/csrc`: every time above is taken for both
@@ -333,13 +334,21 @@ def run(reps: int = 50, parent: str | None = None) -> dict:
 
     resources = _build.kernel_resources(_build.build_log)
     for budget in CONFIGS.values():
-        occupancy = blend_occupancy(resources, CHUNK, budget[0])
-        for name, (threads, smem, regs, blocks) in occupancy.items():
+        occupancy = {k: v for k, v in blend_occupancy(resources, CHUNK, budget[0]).items()
+                     if v[4]}
+        for name, (threads, smem, regs, blocks, _) in occupancy.items():
             r = resources[name]
             print(f"[blend] {name}: {regs} registers, spill stores {r['spill_stores']} B, loads "
                   f"{r['spill_loads']} B; {threads} threads, {smem} B shared memory per block "
                   f"at budget {budget[0]} chunk {CHUNK}: {blocks} blocks per SM")
         res[("occupancy", budget[0])] = occupancy
+    if parent is not None:
+        csrc = Path(parent) / "lara_tpu_torch" / "csrc"
+        for name, r in _build.kernel_resources(_build.other_log(csrc)).items():
+            if name.startswith("blend"):
+                print(f"[blend] parent {name}: {r['registers']} registers, spill stores "
+                      f"{r['spill_stores']} B, loads {r['spill_loads']} B, static shared memory "
+                      f"{r['static_smem']} B")
     print(nvidia_smi_line())
     return res
 

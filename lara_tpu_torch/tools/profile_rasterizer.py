@@ -25,7 +25,9 @@ On `lara_workload` from the bench camera, at the production train (tile
      input shapes, and the render's 12 costliest ops by self device time;
   4. the reference backend (`ops/rasterizer/reference.py`) at the tool's
      size: ms of one forward (host clock, synchronised) and the PSNR of
-     the train and eval renders against it.
+     the train and eval renders against it, and of a train-budget render
+     at 32×32 tiles (512 entries a tile: the same 0.5 a pixel; a splat's
+     radius clamped at 32 px, not 16).
 
 `ms` is a host-clock slope ended by a synchronise (`timing.slope_time`);
 on the card `dev_ms` is the device time of the same calls, a few queued
@@ -183,13 +185,15 @@ def run(device="cuda", size: int = SIZE, n: int = N_SURFELS, quick: bool = False
                                           res[name]["bmm_per_render"].items()}), flush=True)
 
     with torch.no_grad():
+        images["train_tile32"] = render_view(
+            cam, None, *scene, bg, production_config(size, tile=32, tile_budget=512))["image"]
         fetch(None)
         t0 = time.perf_counter()
         ref = rasterize(*act, cam, bg, production_config(size, backend="reference")).image
         fetch(None)
         ms = 1e3 * (time.perf_counter() - t0)
     res["reference"] = {"ms": ms, **{f"psnr_{k}": psnr(images[k], torch.clamp(ref, 0.0, 1.0))
-                                     for k in CONFIGS}}
+                                     for k in images}}
     print(f"[reference] {res['reference']}", flush=True)
     return res
 

@@ -8,8 +8,7 @@ camera, for each `pallas_chunk` and each backward (`stash`:
 `pallas_stash_carries=True`, the stash forward + `blend_bwd`; `replay`:
 the forward + `blend_bwd_replay`): the forward and forward + backward ms
 of one render (`timing.timed`). A chunk that does not divide the tile
-budget, or that the replay refuses (its shared memory past 232,448 B,
-`cuda_blend.kernel_smem`), gets the refusal's message as its row's result.
+budget gets the refusal's message as its row's result.
 """
 
 from __future__ import annotations

@@ -235,10 +235,10 @@ def test_backward_kernel_matches_reference_on_cuda():
     np.testing.assert_allclose(grads[0], grads[1], atol=5e-4, rtol=1e-3)
 
 
-def cotangent(num_tiles, seed):
-    """A random cotangent of the accumulators [T, 10, 256], numpy-made."""
+def cotangent(num_tiles, seed, pixels=256):
+    """A random cotangent of the accumulators [T, 10, P], numpy-made."""
     rng = np.random.default_rng(seed)
-    return rng.normal(size=(num_tiles, 10, 256)).astype(np.float32)
+    return rng.normal(size=(num_tiles, 10, pixels)).astype(np.float32)
 
 
 def grads_both(pb, entries, counts, scalars, cfg, cot):
@@ -322,15 +322,57 @@ def test_replay_backward_matches_pallas_past_16_chunks(pallas_interpret):
     np.testing.assert_allclose(got, want, atol=5e-4, rtol=1e-3)
 
 
+@pytest.fixture(scope="module")
+def tile_windows():
+    """{tile: windows of the random scene at 64², budget 64, chunk 32},
+    made once per tile: the forward and both backward cases share them."""
+    cache = {}
+
+    def get(tile):
+        if tile not in cache:
+            cache[tile] = make_windows(scene_np(5, 800), jax_cfg(tile=tile, pallas_chunk=32,
+                                                                  dup=3))
+        return cache[tile]
+
+    return get
+
+
+@pytest.mark.parametrize("tile", [8, 32])
+def test_reference_matches_pallas_other_tiles(pallas_interpret, tile_windows, tile):
+    """The forward at 8×8 and 32×32 tiles (64² at budget 64, chunk 32):
+    tile² pixels per tile, the dup clamp at (dup − 1)·tile/2."""
+    cfg = jax_cfg(tile=tile, tile_budget=64, pallas_chunk=32, dup=3)
+    entries, counts, scalars = tile_windows(tile)
+    assert entries.shape[0] == (64 // tile) ** 2 and counts.max() == 64
+    got, want = run_both(pallas_interpret, entries, counts, scalars, cfg)
+    assert got.shape[2] == tile * tile and want[:, 3].max() > 0.5
+    assert_accumulators_close(got, want)
+
+
+@pytest.mark.parametrize("stash", [True, False], ids=["stash", "replay"])
+@pytest.mark.parametrize("tile", [8, 32])
+def test_reference_backward_matches_pallas_other_tiles(pallas_interpret, tile_windows, tile,
+                                                      stash):
+    """The backward at 8×8 and 32×32 tiles against the JAX kernel from the
+    stash (`_run_bwd_stash`) and replaying (`_run_bwd`)."""
+    cfg = jax_cfg(tile=tile, tile_budget=64, pallas_chunk=32, dup=3,
+                  pallas_stash_carries=stash)
+    entries, counts, scalars = tile_windows(tile)
+    got, want = grads_both(pallas_interpret, entries, counts, scalars, cfg,
+                           cotangent(cfg.num_tiles, tile, tile * tile))
+    assert np.abs(want).max() > 1.0
+    np.testing.assert_allclose(got, want, atol=5e-4, rtol=1e-3)
+
+
 class _Launched(Exception):
     """Raised in place of the kernel build: the wrapper got past its checks."""
 
 
 def test_replay_knob_reaches_the_wrapper(monkeypatch):
     """RasterizeConfig.stash_carries picks the backward kernel; the replay
-    is refused before any launch only where its shared memory (the hit bits
-    of every chunk) exceeds what a block may ask for, not by its count of
-    chunks."""
+    is refused neither by its count of chunks nor by its shared memory:
+    where the hit bits of every chunk would pass what a block may ask for,
+    it takes its global form and still reaches the launch."""
     cfg = jax_cfg(tile_budget=64, pallas_chunk=32, pallas_stash_carries=False)
     assert torch_cfg(cfg).stash_carries is False
     assert torch_cfg(jax_cfg()).stash_carries is True
@@ -346,10 +388,10 @@ def test_replay_knob_reaches_the_wrapper(monkeypatch):
                                     torch.zeros(big.num_tiles, dtype=torch.int32),
                                     torch.ones(2), torch.zeros(big.num_tiles, 10, 256), big)
 
-    assert cuda_blend.kernel_smem(64, 4096)["blend_bwd_replay"] > cuda_blend.MAX_SMEM
-    with pytest.raises(ValueError, match="replay"):
+    assert cuda_blend.bwd_global(16, 64, 4096, True)
+    with pytest.raises(_Launched):     # 286,720 B of shared memory: refused before
         replay(4096, 64)
-    with pytest.raises(_Launched):     # 32 chunks: refused before, now launched
+    with pytest.raises(_Launched):     # 32 chunks: past the replay's old 16-chunk limit
         replay(1024, 32)
 
 

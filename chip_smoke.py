@@ -10,9 +10,11 @@ each prints its seconds:
   2. build every kernel of `lara_tpu_torch/csrc/` (one nvcc per source,
      started together) and print each kernel's registers and spills (from
      the build logs kept beside the libraries), every blend instantiation's
-     (tiles 8, 16 and 32; the backward in its shared and global forms)
-     shared memory and blocks per SM at the OCCUPANCY configs (the replay's
-     grows with the budget), the flash kernels' dynamic shared memory and
+     (edges 8, 16 and 32, one block a tile and sub-tiled; the backward in
+     its shared and global forms) shared memory and blocks per SM at the
+     OCCUPANCY configs (tiles 64, 24, 20 and 12 run as sub-tiles; the
+     replay's grows with the budget), the flash kernels' dynamic shared
+     memory and
      (with `cuobjdump`) their HGMMA instructions; fail where ptxas
      serialised a wgmma in any kernel;
   3. forward kernel vs plain version (`blend_tiles_reference`) on a random
@@ -37,10 +39,22 @@ each prints its seconds:
      staged in pieces of 512); tile 8 at 256², 32 / 32 (all three kernels);
      both backwards at a chunk of the whole budget, staged in pieces: tiles
      16 and 32 at 256², 1024 (tile 32's in the global form), tile 16 at
-     128², 4096 and tile 8 at 64², 16384 (the global form):
+     128², 4096 and tile 8 at 64², 16384 (the global form); the tiles that
+     run as sub-tiles: tile 64 (4 sub-tiles of 32) at 512², budget 8192 (the
+     eval forward) and 2048 / 64 (the forward against its plain version, the
+     replay in its global form against the stash path), and at 256², 2048 /
+     64 (both backwards against the plain autograd, which at 512² would
+     pass the card's memory), tile 24 (9 of 8) and 12 (one of 16, 144 of
+     its pixels in the tile) at 384² (all three kernels), and tile 20 (9 of
+     8, the last row and column cut by the tile's edge) at 320² (the
+     forward against its plain version, the replay against the stash path):
      each kernel against its plain version at the bars of phases 3 and 4,
      the replay against the stash path bit for bit, which form each
-     backward took, queued device ms and bounds;
+     backward took, queued device ms and bounds; then the sub-tile layout
+     (LAYOUT): tile 20 as sub-tiles of 8, 16 and 32, tile 16 as sub-tiles of
+     8 and tile 32 of 16 and 8 against the native kernels: accumulators,
+     stash, ndone and the replay's carries bit for bit, gradients within
+     2.5e-4 of each column's largest;
   5. flash attention at the ViT's shapes [4, 1025, 12, 64] (serving) and
      [12, 1025, 12, 64] (train) in bf16, a ragged L=200 case with a
      kv_mask, head_dims 16, 48, 80, 96, 112 and 128 at L=257, and f32 at
@@ -118,10 +132,13 @@ each prints its seconds:
      micro-step with `remat_policy="dots"` too; seconds and peak memory of
      each beside the default's;
   9b. the flagship `Config()` at other tiles (TILE_PATHS): `render.tile`
-     32 with budgets 512 / 2048 at 512², and tile 8 with 32 / 128 at 256²:
-     one B=1 request through `make_forward` and one B=3 fine micro-step
-     with the stash and one with the replay through `make_train_step`, each
-     with exactly its tile's kernel launches and finite outputs;
+     32 with budgets 512 / 2048 at 512², tile 8 with 32 / 128 at 256², and
+     tile 64 (sub-tiles of 32) with 2048 / 8192 at 512², its request
+     through `make_forward(render_scale=4)`: 512² inputs rendered at 2048²,
+     32 × 32 tiles: one B=1 request through `make_forward` and one B=3 fine
+     micro-step with the stash and one with the replay through
+     `make_train_step` (at 512²), each with exactly its tile's kernel
+     launches and finite outputs;
   10. the trainer on `configs/synthetic256.yaml` (the flagship network at
      B=3, 4 + 4 views of synthetic scenes at 256²): a store of 32 scenes
      (12 views each) is written to a temporary directory, then
@@ -496,9 +513,11 @@ def check_hgmma() -> None:
 # (tile, chunk, budget) at which the build phase prints each blend
 # instantiation's shared memory and blocks per SM: tile 16 at the train and
 # eval budgets, tiles 32 and 8 at the flagship's 0.5 and 2 entries per pixel
-# (0.5 is tile 32's train budget), tile 32 at the replay's first global form
+# (0.5 is tile 32's train budget), tile 32 at the replay's first global form;
+# the sub-tiled tiles at their envelope configs (tile 64 at 0.5 and 2)
 OCCUPANCY = ((16, 64, 128), (16, 64, 512), (32, 64, 512), (32, 64, 1024), (32, 64, 2048),
-             (8, 32, 32), (8, 32, 128))
+             (8, 32, 32), (8, 32, 128), (64, 64, 2048), (64, 64, 8192), (24, 32, 256),
+             (20, 32, 256), (12, 32, 128))
 
 
 def build_phase_report() -> None:
@@ -536,15 +555,17 @@ def build_phase_report() -> None:
 
 def blend_occupancy(resources: dict, chunk: int, budget: int, tile: int = 16) -> dict:
     """{kernel: (threads, shared memory bytes, registers, blocks per SM,
-    whether this config takes it)} of each blend instantiation of `tile`
-    at `chunk` and `budget`: its dynamic shared memory as its launch asks
-    for it (the backward's in the instantiation's own form; 0 blocks where
-    that passes what a block may ask for) plus its static shared memory,
-    and its registers, from the build log."""
+    whether this config takes it)} of each blend instantiation that runs
+    `tile` (its own at 8, 16 and 32, else the sub-tiled kernels of its
+    sub-tile's edge) at `chunk` and `budget`: its dynamic shared memory as
+    its launch asks for it (the backward's in the instantiation's own form;
+    0 blocks where that passes what a block may ask for) plus its static
+    shared memory, and its registers, from the build log."""
     out = {}
+    edge, sub = cuda_blend.subtile(tile), tile not in cuda_blend.TILES
     for name, r in resources.items():
-        kind, t, global_form, split = cuda_blend.KERNELS.get(name, (None,) * 4)
-        if t != tile:
+        kind, t, global_form, split, sub_kernel = cuda_blend.KERNELS.get(name, (None,) * 5)
+        if t != edge or sub_kernel != sub:
             continue
         taken = cuda_blend.split_chunk(kind, tile, chunk) == split
         if kind == "blend_fwd":
@@ -783,7 +804,16 @@ def backward_phase(dev) -> dict:
 # entries (staged in pieces) at a size where the plain autograd fits (about
 # 16 GB): tile 16 in the shared form, tiles 32, 16 and 8 in the global form
 # of the stash backward and the replay (one chunk a tile, so both keep the
-# same hit bits)
+# same hit bits). Then the tiles that run as sub-tiles: tile 64 at 512² (the
+# eval forward; the forward and the replay's global form against the stash
+# path: the plain autograd of 64 tiles × 2048 entries × 4096 pixels would
+# pass the card's 80 GB) and at 256², where the plain autograd fits (about
+# 30 GB), and tiles 24, 12 and 20 (sub-tiles of 8, 16 and 8; 12 and 20
+# cut by the tile's edge). Tile 20 at 320² runs "replay": there the kernels
+# and the plain version part by up to 3e-5 in alpha on a few hundred pixels
+# at every tile, the native 16 and 32 too, and its gradients pass the bar's
+# share of rows (0.11 % of 30,100 against 0.1 %); its sub-tiles are held by
+# LAYOUT instead, bit for bit
 ENVELOPE = (
     ("t32_train", 32, H, 512, 131072, 64, "train"),
     ("t32_eval", 32, H, 2048, 262144, 64, "fwd"),
@@ -797,7 +827,24 @@ ENVELOPE = (
     ("t32_bwd_chunk1024", 32, 256, 1024, 131072, 1024, "train"),
     ("t16_bwd_global", 16, 128, 4096, 131072, 4096, "train"),
     ("t8_bwd_global", 8, 64, 16384, 131072, 16384, "train"),
+    ("t64_eval", 64, H, 8192, 262144, 64, "fwd"),
+    ("t64_train", 64, 256, 2048, 131072, 64, "train"),
+    ("t64_replay_global", 64, H, 2048, 131072, 64, "replay"),
+    ("t24", 24, 384, 256, 131072, 32, "all"),
+    ("t12", 12, 384, 128, 131072, 32, "all"),
+    ("t20", 20, 320, 256, 131072, 32, "replay"),
 )
+# the sub-tile layout (blend_common.cuh:tile_pixel, fill_stash_kernel): a tile
+# run at each of these sub-tile edges, and tiles 16 and 32 run as sub-tiles,
+# must give the forward's accumulators, the stash, ndone and the replay's
+# carries of the first edge (the native kernels' at 16 and 32) bit for bit, and
+# gradients within LAYOUT_GRAD_RTOL of each column's largest: the sums over a
+# tile's pixels go in another order (measured up to 5.9e-5, tile 32 as
+# sub-tiles of 8 on the H100; the kernels and the plain version part by up to
+# 3.2e-5 of au0's largest at tile 32): (tile, size, budget, chunk, edges)
+LAYOUT = ((20, 320, 256, 32, (8, 16, 32)), (16, 256, 128, 32, (16, 8)),
+          (32, H, 512, 64, (32, 16, 8)))
+LAYOUT_GRAD_RTOL = 2.5e-4
 
 
 def envelope_case(name, scene, cam, tile, size, budget, visible, chunk, runs, seed) -> list:
@@ -861,15 +908,70 @@ def envelope_case(name, scene, cam, tile, size, budget, visible, chunk, runs, se
     return out
 
 
+@contextlib.contextmanager
+def sub_edge(edge: int):
+    """Every tile runs as sub-tiles of `edge` inside the block (the
+    wrappers' `cuda_blend.subtile` replaced); `edge` = the tile runs its
+    own instantiation where it has one."""
+    rule = cuda_blend.subtile
+    cuda_blend.subtile = lambda tile: edge
+    try:
+        yield
+    finally:
+        cuda_blend.subtile = rule
+
+
+def layout_case(scene, cam, tile, size, budget, chunk, edges) -> None:
+    """One LAYOUT config: the stash forward, the backward and the replay
+    (with its walk written) at each edge, against the first edge's."""
+    cfg = RasterizeConfig(height=size, width=size, tile=tile, dup=3, tile_budget=budget,
+                          visible_budget=131072, pallas_chunk=chunk)
+    entries, counts, scalars = windows(scene, cfg, cam)
+    gen = torch.Generator().manual_seed(tile)
+    cot = torch.randn((cfg.num_tiles, cuda_blend.NUM_CHANNELS, tile * tile),
+                      generator=gen).to(entries.device)
+
+    def run(edge):
+        with sub_edge(edge):
+            out, carries, ndone = cuda_blend.blend_fwd(entries, counts, scalars, cfg, stash=True)
+            grad = cuda_blend.blend_bwd(entries, counts, scalars, carries, ndone, cot, cfg)
+            grad_r, carries_r, ndone_r = cuda_blend.blend_bwd_replay(
+                entries, counts, scalars, cot, cfg, return_carries=True)
+        torch.cuda.synchronize()
+        return out, carries, ndone, grad, grad_r, carries_r, ndone_r
+
+    base = run(edges[0])
+    used = (torch.arange(base[1].shape[1], device=entries.device)[None, :]
+            <= base[2][:, None])[:, :, None, None]
+    scale = base[3].abs().amax(dim=(0, 1)) + 1e-30
+    for edge in edges[1:]:
+        got = run(edge)
+        same = {"accumulators": torch.equal(got[0], base[0]),
+                "ndone": torch.equal(got[2], base[2]) and torch.equal(got[6], base[2]),
+                "carries": all(torch.equal(torch.where(used, c, 0.0),
+                                           torch.where(used, base[1], 0.0))
+                               for c in (got[1], got[5])),
+                "replay = stash": torch.equal(got[3], got[4])}
+        err = max(((g - base[3]).abs() / scale).amax().item() for g in (got[3], got[4]))
+        print(f"[layout] tile {tile} at {size}², budget {budget} chunk {chunk}: sub-tiles of "
+              f"{edge} ({-(-tile // edge)} a side) against "
+              f"{'the native kernels' if edge == edges[0] == tile else f'sub-tiles of {edges[0]}'}"
+              f": bit for bit {same}; gradients max |Δ| / column scale {err:.2e}")
+        if not all(same.values()) or not err <= LAYOUT_GRAD_RTOL:
+            raise AssertionError(f"tile {tile} at edge {edge}: {same}, gradients {err:.2e}")
+
+
 def envelope_phase(dev) -> list:
     """Every ENVELOPE config, each kernel against its plain version (or the
     replay against the stash path), at the bars of the kernel and backward
-    phases; returns the case records."""
+    phases, then the LAYOUT checks; returns the case records."""
     cam, scene = camera(dev), workload_scene(dev)
     cases = []
     for seed, args in enumerate(ENVELOPE, 20):
         cases += envelope_case(args[0], scene, cam, *args[1:], seed)
         torch.cuda.empty_cache()
+    for args in LAYOUT:
+        layout_case(scene, cam, *args)
     return cases
 
 
@@ -992,12 +1094,13 @@ def check_outputs(out: dict, n_views: int, views: int = 0, size: int = H):
             raise AssertionError(f"{k} is zero everywhere")
 
 
-def serve_requests(net, batches, want: dict, tag: str, size: int = H):
-    """Requests through `make_forward` at size², each with exactly the
-    launches in `want`; returns (image_fine of the first, seconds per
-    request)."""
+def serve_requests(net, batches, want: dict, tag: str, size: int = H,
+                   render_scale: float = 1.0):
+    """Requests through `make_forward(render_scale=...)` of size² inputs,
+    each with exactly the launches in `want`; returns (image_fine of the
+    first, seconds per request)."""
     n_views = net.cfg.n_views
-    fwd = make_forward(net, with_fine=True)
+    fwd = make_forward(net, with_fine=True, render_scale=render_scale)
     seconds, first = [], None
     for i, batch in enumerate(batches):
         before = launches()
@@ -1007,7 +1110,7 @@ def serve_requests(net, batches, want: dict, tag: str, size: int = H):
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         launched = {k: v - before[k] for k, v in launches().items()}
-        check_outputs(out, n_views, size=size)
+        check_outputs(out, n_views, size=round(size * render_scale))
         if launched != want:
             raise AssertionError(f"{tag} request {i}: kernel launches {launched}, expected {want}")
         print(f"[{tag}] request {i}: {seconds[-1]:.4f} s, launches {launched}, max acc_map "
@@ -1675,19 +1778,24 @@ def train_flagship_phase(dev, knobs: bool) -> dict:
     return res
 
 
-# the flagship at other tiles: (tile, size, train budget, eval
-# budget), base.yaml's 0.5 and 2 entries per pixel; tile 32 at 512², tile 8
-# at 256² (binning packs tile bounds in 5 bits: at most 32 tiles a side)
-TILE_PATHS = ((32, H, 512, 2048), (8, 256, 32, 128))
+# the flagship at other tiles: (tile, size, train budget, eval budget, the
+# request's render_scale), base.yaml's 0.5 and 2 entries per pixel; tile 32
+# at 512², tile 8 at 256² (binning packs tile bounds in 5 bits: at most 32
+# tiles a side), tile 64 at 512² with its request rendered at 2048² (32
+# tiles a side, the reference's render_img_scale 4: only a tile of 64
+# bins it)
+TILE_PATHS = ((32, H, 512, 2048, 1), (8, 256, 32, 128, 1), (64, H, 2048, 8192, 4))
 
 
-def tile_path_phase(dev, tile: int, size: int, train_budget: int, eval_budget: int) -> dict:
+def tile_path_phase(dev, tile: int, size: int, train_budget: int, eval_budget: int,
+                    render_scale: int = 1) -> dict:
     """The flagship `Config()` with `render.tile` = tile and its budgets,
-    seeded random weights: one B=1 request through `make_forward` at size²,
-    then one B=3 fine micro-step with the stash and one with the replay
-    backward through `make_train_step` (from micro-step 2002), each with
-    exactly its kernel launches (the tile's instantiations), finite outputs
-    and stats, a gradient in every stage."""
+    seeded random weights: one B=1 request through
+    `make_forward(render_scale=...)` of size² inputs, then one B=3 fine
+    micro-step with the stash and one with the replay backward through
+    `make_train_step` (from micro-step 2002) at size², each with exactly its
+    kernel launches (the tile's instantiations), finite outputs and stats, a
+    gradient in every stage."""
     base = Config()
     cfg = dataclasses.replace(base, render=dataclasses.replace(
         base.render, tile=tile, tile_budget=train_budget, eval_tile_budget=eval_budget))
@@ -1699,7 +1807,7 @@ def tile_path_phase(dev, tile: int, size: int, train_budget: int, eval_budget: i
     reset_launches()
     _, seconds = serve_requests(net, [make_batch(0, n_views, dev, size=size)],
                                 {**none, cuda_blend.launch_key("blend_fwd", tile): 4 * n_views},
-                                tag, size)
+                                tag, size, render_scale)
     batch = make_batch(11, n_views, dev, scenes=scenes, size=size)
     state = TrainState(net, cfg.train, max_iters=30000, step=2002)
     step = make_train_step(net, state, True, cfg.train.grad_accum)
@@ -3182,10 +3290,12 @@ def kernel_records(kernel, backward, flash_res, serving, groups, binning, train,
     its largest error against the plain
     version, its time beside the plain version's, the library call's (flash)
     and its bound, at the path's shapes. Each blend kernel also lists its
-    envelope cases (`cases`); the tile-32 and tile-8 instantiations are
-    records of their own, launched on their tile's path, timed at its
-    envelope configs (tile 32: the eval forward at budget 2048, the rest at
-    512 / 64; tile 8: 32 / 32 at 256²)."""
+    envelope cases (`cases`); the tile-32, tile-8 and tile-64 (sub-tiled)
+    launches are records of their own, launched on their tile's path, timed
+    at its envelope configs (tile 32: the eval forward at budget 2048, the
+    rest at 512 / 64; tile 8: 32 / 32 at 256²; tile 64: the eval forward at
+    8192, the rest at 2048 / 64 at 256²); tile 64's records list the cases
+    of every sub-tiled tile (64, 24, 12, 20)."""
     bwd, fl, win = backward["train"], flash_res["train"], binning["train"]
     src, pallas = "lara_tpu_torch/csrc/", "lara_tpu/ops/rasterizer/pallas_blend.py"
 
@@ -3198,12 +3308,15 @@ def kernel_records(kernel, backward, flash_res, serving, groups, binning, train,
              "blend_bwd_replay": ":432"}
 
     def cases(kind, tile):
-        return [c for c in envelope if c["kind"] == kind and c["tile"] == tile]
+        sub = tile not in cuda_blend.TILES
+        return [c for c in envelope if c["kind"] == kind
+                and (c["tile"] == tile or sub and c["tile"] not in cuda_blend.TILES)]
 
     def tile_records(tile):
         out = []
         for kind, line in lines.items():
-            timed = [c for c in cases(kind, tile) if c["plain_ms"] is not None][0]
+            timed = [c for c in cases(kind, tile)
+                     if c["tile"] == tile and c["plain_ms"] is not None][0]
             r = rec(cuda_blend.launch_key(kind, tile), "blend_bwd.cu" if "bwd" in kind
                     else "blend_fwd.cu", pallas + line,
                     tile_paths[tile]["launches"][cuda_blend.launch_key(kind, tile)],
@@ -3253,7 +3366,7 @@ def kernel_records(kernel, backward, flash_res, serving, groups, binning, train,
     ]
     for r in records[:4]:
         r.update(tile=16, cases=cases(r["name"], 16))
-    return records[:4] + tile_records(32) + tile_records(8) + records[4:]
+    return records[:4] + tile_records(32) + tile_records(8) + tile_records(64) + records[4:]
 
 
 def main() -> int:
@@ -3281,8 +3394,8 @@ def main() -> int:
     check_hgmma()
     kernel = phase("forward kernel", kernel_phase, dev)
     backward = phase("backward kernels (stash and replay)", backward_phase, dev)
-    envelope = phase("envelope (tiles 8 and 32, chunks to the budget, the replay's global form)",
-                     envelope_phase, dev)
+    envelope = phase("envelope (tiles 8 and 32, chunks to the budget, the replay's global form, "
+                     "sub-tiled tiles 64, 24, 12 and 20)", envelope_phase, dev)
     torch.cuda.empty_cache()
     flash_res = phase("flash attention", flash_phase, dev)
     serving = phase("serving (default, then flash attention)", slice_phase, dev)
@@ -3304,11 +3417,12 @@ def main() -> int:
           f"{train_knobs['peak_gb']:.2f} GB; + dots {train_knobs['dots_s']:.3f} s peak "
           f"{train_knobs['dots_peak_gb']:.2f} GB")
     tile_paths = {}
-    for tile, size, train_budget, eval_budget in TILE_PATHS:
+    for tile, size, train_budget, eval_budget, scale in TILE_PATHS:
         torch.cuda.empty_cache()
         tile_paths[tile] = phase(f"tile {tile} (flagship at {size}², budgets {train_budget} / "
-                                 f"{eval_budget})", tile_path_phase, dev, tile, size,
-                                 train_budget, eval_budget)
+                                 f"{eval_budget}, the request rendered at {size * scale}²)",
+                                 tile_path_phase, dev, tile, size, train_budget, eval_budget,
+                                 scale)
 
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="lara_trainer_") as tmp:

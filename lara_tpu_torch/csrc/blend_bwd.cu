@@ -11,7 +11,9 @@
 // CUDA 2DGS backward.
 //
 // What it computes. Per tile of P = tile^2 pixels (tiles 8, 16 and 32: one
-// template instantiation each), from the entries [K, 13], the cotangent of
+// template instantiation each; any other edge as sub-tiles of one of these,
+// blend_common.cuh, each sub-tile's rows summed in sub-tile order by
+// sum_parts_kernel), from the entries [K, 13], the cotangent of
 // the raw accumulators [10, P] (the median's is ignored: its gradient is
 // defined as 0), the forward's stash [budget/chunk + 1, 4, P] and its
 // processed-chunk count ndone: the gradient of every entry row [K, 13]
@@ -132,6 +134,13 @@
 // reverse, as in the stash mode. Bits past a pixel's stop are 0. With the
 // optional outputs non-null the replay also writes what it rebuilt, in the
 // stash forward's layout, for a check against the stash path.
+//
+// Sub-tiles. In stash mode a sub-tile walks every chunk up to its tile's
+// ndone from the (filled) stash; in replay mode it replays until its own
+// pixels are saturated, which gives the same decisions for them, and rows
+// of chunks past its own count are its zeros. The sum over the sub-tiles is
+// a second launch, in a fixed order, so the replay equals the stash path and
+// two calls agree, bit for bit.
 //
 // The global form. Where the block's shared memory (smem_bytes) would pass
 // the 232,448 B a block may ask for (the replay at budget 4096 and chunk 64
@@ -408,6 +417,7 @@ size_t smem_bytes(int tile, int budget, int chunk, bool replay, bool global) {
   return sizeof(float4) * kRecords * staged + sizeof(float) * (bits + warps * group * kPartials);
 }
 
+// The backward of one block.
 // kReplay false: stash and ndone_arr are the stash forward's outputs, read.
 // kReplay true: they are optional outputs (null to skip) of the replay walk.
 // kGlobal: the hit bits and end values live in `scratch`, [T][2][kept][nsub]
@@ -417,12 +427,20 @@ size_t smem_bytes(int tile, int budget, int chunk, bool replay, bool global) {
 // reduced in groups and, past kMaxStaged, staged in pieces. A template
 // parameter, so that shorter chunks fold the loops to one pass: at tile 16
 // the stash mode keeps 118 registers (123 with the loops at run time).
-template <int kTile, bool kReplay, bool kGlobal, bool kSplit>
-__global__ void __launch_bounds__(TileShape<kTile>::kThreads, min_blocks<kTile>())
-    blend_bwd_kernel(const float* __restrict__ entries, const int* __restrict__ counts,
-                     const float* __restrict__ scalars, float* __restrict__ stash,
-                     int* __restrict__ ndone_arr, const float* __restrict__ cot,
-                     float* __restrict__ grad, unsigned* __restrict__ scratch, Params p) {
+// kSubTiled: the block is sub-tile `part` of a tile of edge p.tile, parts_x a
+// side (blend_common.cuh): its pixels map into the tile; the stash mode
+// reads the tile's count ndone_arr[t] and walks to it; the replay walks to
+// its own count, written (when asked) to ndone_arr[t][parts]; the rows go to
+// grad[part][t] ([parts][T][K][13], summed by sum_parts_kernel), and the
+// global form's region is the sub-tile's.
+template <int kTile, bool kReplay, bool kGlobal, bool kSplit, bool kSubTiled>
+__device__ __forceinline__ void bwd_block(const float* __restrict__ entries,
+                                          const int* __restrict__ counts,
+                                          const float* __restrict__ scalars,
+                                          float* __restrict__ stash, int* __restrict__ ndone_arr,
+                                          const float* __restrict__ cot,
+                                          float* __restrict__ grad, unsigned* __restrict__ scratch,
+                                          Params p, int parts_x) {
   constexpr int kPixels = TileShape<kTile>::kPixels, kThreads = TileShape<kTile>::kThreads;
   constexpr int kWarps = TileShape<kTile>::kWarps;
   extern __shared__ float4 smem4[];
@@ -442,9 +460,19 @@ __global__ void __launch_bounds__(TileShape<kTile>::kThreads, min_blocks<kTile>(
   }
 
   // the partials' buffer is first written after the staging's barrier
-  const int t = tile_of_block<kThreads>(counts, gridDim.x, p.budget, reinterpret_cast<int*>(red));
+  const int parts = kSubTiled ? parts_x * parts_x : 1;
+  const SubBlock sb = kSubTiled ? sub_block(parts_x) : SubBlock{0, 0};
+  const int num_tiles = kSubTiled ? gridDim.x / parts : gridDim.x;
+  int t;
+  if constexpr (kSubTiled) {
+    t = tile_of_block<kThreads>(counts, num_tiles, sb.rank, p.budget, reinterpret_cast<int*>(red));
+  } else {
+    t = tile_of_block<kThreads>(counts, gridDim.x, blockIdx.x, p.budget,
+                                reinterpret_cast<int*>(red));
+  }
   if constexpr (kGlobal) {
-    hits = scratch + static_cast<size_t>(t) * 2 * kept * nsub * kPixels;
+    hits = scratch + (kSubTiled ? static_cast<size_t>(t) * parts + sb.part : t)
+                     * 2 * kept * nsub * kPixels;
     tend = reinterpret_cast<float*>(hits + static_cast<size_t>(kept) * nsub * kPixels);
   }
   const int tid = threadIdx.x;
@@ -454,40 +482,54 @@ __global__ void __launch_bounds__(TileShape<kTile>::kThreads, min_blocks<kTile>(
   const int slots = p.budget / c + 1;
   const View v = make_view(scalars, p);
   const float* tile_rows = entries + static_cast<size_t>(t) * p.budget * kPackCols;
+  // the thread's two pixels in the tile (-1 past a sub-tiled tile's edge)
+  const int pixels = kSubTiled ? p.tile * p.tile : kPixels;
+  const int pix[2] = {
+      kSubTiled ? tile_pixel<kTile>(tid, sb.part, parts_x, p.tile) : tid,
+      kSubTiled ? tile_pixel<kTile>(tid + kThreads, sb.part, parts_x, p.tile) : tid + kThreads};
+  const bool in[2] = {!kSubTiled || pix[0] >= 0, !kSubTiled || pix[1] >= 0};
+  // the stash of the tile, at the thread's first pixel (one block a tile) or
+  // at its corner (sub-tiles); off[h]: the pixel h from there
   float* st = stash == nullptr ? nullptr
-                               : stash + static_cast<size_t>(t) * slots * 4 * kPixels + tid;
+                               : stash + static_cast<size_t>(t) * slots * 4 * pixels
+                                     + (kSubTiled ? 0 : tid);
+  const int off[2] = {kSubTiled ? pix[0] : 0, kSubTiled ? pix[1] : kThreads};
 
   PixelGrad s[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    s[h].q = make_pixel(t, tid + h * kThreads, p, v);
-    const float* g = cot + static_cast<size_t>(t) * kNumChannels * kPixels + tid + h * kThreads;
-    s[h].g_r = g[0];
-    s[h].g_g = g[kPixels];
-    s[h].g_b = g[2 * kPixels];
-    s[h].g_a = g[3 * kPixels];
-    s[h].g_d = g[4 * kPixels];
-    s[h].g_n0 = g[6 * kPixels];
-    s[h].g_n1 = g[7 * kPixels];
-    s[h].g_n2 = g[8 * kPixels];
-    s[h].g_dist = g[9 * kPixels];
+    s[h].q = make_pixel(t, kSubTiled ? max(pix[h], 0) : tid + h * kThreads, p, v);
+    const float* g = cot + static_cast<size_t>(t) * kNumChannels * pixels
+                     + (kSubTiled ? pix[h] : tid) + (kSubTiled ? 0 : h * kThreads);
+    s[h].g_r = in[h] ? g[0] : 0.0f;
+    s[h].g_g = in[h] ? g[pixels] : 0.0f;
+    s[h].g_b = in[h] ? g[2 * pixels] : 0.0f;
+    s[h].g_a = in[h] ? g[3 * pixels] : 0.0f;
+    s[h].g_d = in[h] ? g[4 * pixels] : 0.0f;
+    s[h].g_n0 = in[h] ? g[6 * pixels] : 0.0f;
+    s[h].g_n1 = in[h] ? g[7 * pixels] : 0.0f;
+    s[h].g_n2 = in[h] ? g[8 * pixels] : 0.0f;
+    s[h].g_dist = in[h] ? g[9 * pixels] : 0.0f;
     s[h].S = 0.0f;
   }
 
   int ndone;
   if constexpr (kReplay) {
-    // the forward kernel's walk, without its colour sums, over every chunk
-    Carry cr[2] = {{1.0f, 0.0f, 0.0f, 0.0f}, {1.0f, 0.0f, 0.0f, 0.0f}};
+    // the forward kernel's walk, without its colour sums, over every chunk;
+    // a pixel past the tile's edge starts saturated
+    Carry cr[2] = {{in[0] ? 1.0f : -1.0f, 0.0f, 0.0f, 0.0f},
+                   {in[1] ? 1.0f : -1.0f, 0.0f, 0.0f, 0.0f}};
     float Tc[2] = {1.0f, 1.0f};
     auto put_carry = [&](int ci) {
       if (st != nullptr) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          float* sh = st + (ci * 4) * kPixels + h * kThreads;
+          if (!in[h]) continue;
+          float* sh = st + (ci * 4) * pixels + off[h];
           sh[0] = cr[h].T;
-          sh[kPixels] = cr[h].A;
-          sh[2 * kPixels] = cr[h].M1;
-          sh[3 * kPixels] = cr[h].M2;
+          sh[pixels] = cr[h].A;
+          sh[2 * pixels] = cr[h].M1;
+          sh[3 * pixels] = cr[h].M2;
         }
       }
     };
@@ -509,7 +551,10 @@ __global__ void __launch_bounds__(TileShape<kTile>::kThreads, min_blocks<kTile>(
       if (__syncthreads_count(cr[0].T >= p.t_min || cr[1].T >= p.t_min) == 0) break;
     }
     put_carry(ci);
-    if (ndone_arr != nullptr && tid == 0) ndone_arr[t] = ci;
+    if (ndone_arr != nullptr && tid == 0) {
+      if constexpr (kSubTiled) ndone_arr[t * parts + sb.part] = ci;
+      else ndone_arr[t] = ci;
+    }
     ndone = ci;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -521,16 +566,17 @@ __global__ void __launch_bounds__(TileShape<kTile>::kThreads, min_blocks<kTile>(
     ndone = ndone_arr[t];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const float* sh = st + (ndone * 4) * kPixels + h * kThreads;
-      s[h].a_tot = sh[kPixels];
-      s[h].m1_tot = sh[2 * kPixels];
-      s[h].m2_tot = sh[3 * kPixels];
+      const float* sh = st + (ndone * 4) * pixels + off[h];
+      s[h].a_tot = in[h] ? sh[pixels] : 0.0f;
+      s[h].m1_tot = in[h] ? sh[2 * pixels] : 0.0f;
+      s[h].m2_tot = in[h] ? sh[3 * pixels] : 0.0f;
     }
   }
 
   // rows no pixel took: in chunks the walk never reached, and (kSplit; the
   // one-group code zeroes them with the chunk's rows) past the count
-  float* tile_grad = grad + static_cast<size_t>(t) * p.budget * kPackCols;
+  float* tile_grad = grad + (kSubTiled ? static_cast<size_t>(sb.part) * num_tiles + t : t)
+                            * p.budget * kPackCols;
   const int zero_from = kSplit ? min(n, ndone * c) : ndone * c;
   for (int i = zero_from * kPackCols + tid; i < p.budget * kPackCols; i += kThreads)
     tile_grad[i] = 0.0f;
@@ -556,7 +602,7 @@ __global__ void __launch_bounds__(TileShape<kTile>::kThreads, min_blocks<kTile>(
       float Tc[2];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        cw[h].T = Tc[h] = st[(ci * 4) * kPixels + h * kThreads];
+        cw[h].T = Tc[h] = in[h] ? st[(ci * 4) * pixels + off[h]] : -1.0f;
         cw[h].A = cw[h].M1 = cw[h].M2 = 0.0f;
       }
       for (int s0 = 0;; s0 += kMaxStaged) {  // one piece unless kSplit
@@ -636,61 +682,152 @@ __global__ void __launch_bounds__(TileShape<kTile>::kThreads, min_blocks<kTile>(
   }
 }
 
-template <int kTile, bool kReplay, bool kGlobal>
+// One block per tile of edge kTile.
+template <int kTile, bool kReplay, bool kGlobal, bool kSplit>
+__global__ void __launch_bounds__(TileShape<kTile>::kThreads, min_blocks<kTile>())
+    blend_bwd_kernel(const float* __restrict__ entries, const int* __restrict__ counts,
+                     const float* __restrict__ scalars, float* __restrict__ stash,
+                     int* __restrict__ ndone_arr, const float* __restrict__ cot,
+                     float* __restrict__ grad, unsigned* __restrict__ scratch, Params p) {
+  bwd_block<kTile, kReplay, kGlobal, kSplit, false>(entries, counts, scalars, stash, ndone_arr,
+                                                    cot, grad, scratch, p, 1);
+}
+
+// One block per sub-tile of edge kTile, parts_x^2 per tile of edge p.tile.
+template <int kTile, bool kReplay, bool kGlobal, bool kSplit>
+__global__ void __launch_bounds__(TileShape<kTile>::kThreads, min_blocks<kTile>())
+    blend_bwd_sub_kernel(const float* __restrict__ entries, const int* __restrict__ counts,
+                         const float* __restrict__ scalars, float* __restrict__ stash,
+                         int* __restrict__ ndone_arr, const float* __restrict__ cot,
+                         float* __restrict__ grad, unsigned* __restrict__ scratch, Params p,
+                         int parts_x) {
+  bwd_block<kTile, kReplay, kGlobal, kSplit, true>(entries, counts, scalars, stash, ndone_arr,
+                                                   cot, grad, scratch, p, parts_x);
+}
+
+// grad[i] = the sum of the n sub-tiles' rows parts[0..parts)[i], in sub-tile
+// order, so that two calls give the same bits.
+__global__ void sum_parts_kernel(const float* __restrict__ part_grads, float* __restrict__ grad,
+                                 size_t n, int parts) {
+  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
+       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    float sum = part_grads[i];
+    for (int k = 1; k < parts; ++k) sum += part_grads[k * n + i];
+    grad[i] = sum;
+  }
+}
+
+template <int kTile, bool kReplay, bool kGlobal, bool kSubTiled>
 int launch(const float* entries, const int* counts, const float* scalars,
            float* stash, int* ndone, const float* cot, float* grad, unsigned* scratch,
-           int num_tiles, const Params& p, cudaStream_t stream) {
+           int num_tiles, int parts_x, const Params& p, cudaStream_t stream) {
   const size_t smem = smem_bytes(kTile, p.budget, p.chunk, kReplay, kGlobal);
-  auto kernel = p.chunk > reduce_group(kTile) ? blend_bwd_kernel<kTile, kReplay, kGlobal, true>
-                                              : blend_bwd_kernel<kTile, kReplay, kGlobal, false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<num_tiles, TileShape<kTile>::kThreads, smem, stream>>>(
-      entries, counts, scalars, stash, ndone, cot, grad, scratch, p);
+  const bool split = p.chunk > reduce_group(kTile);
+  if constexpr (kSubTiled) {
+    auto kernel = split ? blend_bwd_sub_kernel<kTile, kReplay, kGlobal, true>
+                        : blend_bwd_sub_kernel<kTile, kReplay, kGlobal, false>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<num_tiles * parts_x * parts_x, TileShape<kTile>::kThreads, smem, stream>>>(
+        entries, counts, scalars, stash, ndone, cot, grad, scratch, p, parts_x);
+  } else {
+    auto kernel = split ? blend_bwd_kernel<kTile, kReplay, kGlobal, true>
+                        : blend_bwd_kernel<kTile, kReplay, kGlobal, false>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<num_tiles, TileShape<kTile>::kThreads, smem, stream>>>(
+        entries, counts, scalars, stash, ndone, cot, grad, scratch, p);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int kTile>
+template <int kTile, bool kSubTiled>
 int launch_tile(const float* entries, const int* counts, const float* scalars,
                 float* stash, int* ndone, const float* cot, float* grad, bool replay,
-                unsigned* scratch, int num_tiles, const Params& p, cudaStream_t s) {
+                unsigned* scratch, int num_tiles, int parts_x, const Params& p, cudaStream_t s) {
   if (scratch != nullptr)
-    return replay ? launch<kTile, true, true>(entries, counts, scalars, stash, ndone, cot, grad,
-                                              scratch, num_tiles, p, s)
-                  : launch<kTile, false, true>(entries, counts, scalars, stash, ndone, cot, grad,
-                                               scratch, num_tiles, p, s);
-  return replay ? launch<kTile, true, false>(entries, counts, scalars, stash, ndone, cot, grad,
-                                             scratch, num_tiles, p, s)
-                : launch<kTile, false, false>(entries, counts, scalars, stash, ndone, cot, grad,
-                                              scratch, num_tiles, p, s);
+    return replay ? launch<kTile, true, true, kSubTiled>(entries, counts, scalars, stash, ndone,
+                                                         cot, grad, scratch, num_tiles, parts_x,
+                                                         p, s)
+                  : launch<kTile, false, true, kSubTiled>(entries, counts, scalars, stash, ndone,
+                                                          cot, grad, scratch, num_tiles, parts_x,
+                                                          p, s);
+  return replay ? launch<kTile, true, false, kSubTiled>(entries, counts, scalars, stash, ndone,
+                                                        cot, grad, scratch, num_tiles, parts_x,
+                                                        p, s)
+                : launch<kTile, false, false, kSubTiled>(entries, counts, scalars, stash, ndone,
+                                                         cot, grad, scratch, num_tiles, parts_x,
+                                                         p, s);
 }
 
-// The form follows (tile, budget, chunk, mode) alone: the shared form where
-// its shared memory fits kMaxSmem, else the global form, which needs
-// `scratch`, and only then.
+// The form follows (edge, budget, chunk, mode) alone, the edge being the
+// tile's or, sub-tiled, the sub-tile's: the shared form where its shared
+// memory fits kMaxSmem, else the global form, which needs `scratch`, and
+// only then. sub_edge 0: one block per tile (tiles 8, 16, 32). Otherwise
+// ceil(tile / sub_edge)^2 sub-tiles of sub_edge a tile: where that is more
+// than one, the blocks write their rows to part_grads [parts][T][K][13],
+// summed into grad by sum_parts_kernel, and a replay that writes its walk
+// puts the sub-tiles' counts into part_ndone [T][parts] for
+// fill_stash_kernel.
 int run(const float* entries, const int* counts, const float* scalars, float* stash,
         int* ndone, const float* cot, float* grad, int replay, unsigned* scratch,
         int num_tiles, int tiles_x, int tile, int width, int height, int budget, int chunk,
         float alpha_min, float t_min, float near_cull, float dist_near, float dist_far,
-        float filter2d_invsq, void* stream) {
-  if (chunk <= 0 || budget % chunk != 0) return static_cast<int>(cudaErrorInvalidValue);
+        float filter2d_invsq, void* stream, int sub_edge, float* part_grads,
+        int* part_ndone) {
+  if (chunk <= 0 || budget % chunk != 0 || tile <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (!replay && (stash == nullptr || ndone == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool global = smem_bytes(tile, budget, chunk, replay != 0, false) > kMaxSmem;
+  const bool global = smem_bytes(sub_edge ? sub_edge : tile, budget, chunk, replay != 0, false)
+                      > kMaxSmem;
   if (global != (scratch != nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   Params p{tiles_x, tile, width, height, budget, chunk,
            alpha_min, t_min, near_cull, dist_near, dist_far, filter2d_invsq};
   auto s = static_cast<cudaStream_t>(stream);
-  switch (tile) {
-    case 8: return launch_tile<8>(entries, counts, scalars, stash, ndone, cot, grad,
-                                  replay != 0, scratch, num_tiles, p, s);
-    case 16: return launch_tile<16>(entries, counts, scalars, stash, ndone, cot, grad,
-                                    replay != 0, scratch, num_tiles, p, s);
-    case 32: return launch_tile<32>(entries, counts, scalars, stash, ndone, cot, grad,
-                                    replay != 0, scratch, num_tiles, p, s);
+  if (sub_edge == 0) {
+    switch (tile) {
+      case 8: return launch_tile<8, false>(entries, counts, scalars, stash, ndone, cot, grad,
+                                           replay != 0, scratch, num_tiles, 1, p, s);
+      case 16: return launch_tile<16, false>(entries, counts, scalars, stash, ndone, cot, grad,
+                                             replay != 0, scratch, num_tiles, 1, p, s);
+      case 32: return launch_tile<32, false>(entries, counts, scalars, stash, ndone, cot, grad,
+                                             replay != 0, scratch, num_tiles, 1, p, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  const int parts_x = (tile + sub_edge - 1) / sub_edge, parts = parts_x * parts_x;
+  const bool fill = replay && stash != nullptr && parts > 1;
+  if ((parts > 1 && part_grads == nullptr) || (fill && part_ndone == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* rows = parts > 1 ? part_grads : grad;
+  int* counts_out = fill ? part_ndone : ndone;
+  int err;
+  switch (sub_edge) {
+    case 8: err = launch_tile<8, true>(entries, counts, scalars, stash, counts_out, cot, rows,
+                                       replay != 0, scratch, num_tiles, parts_x, p, s);
+      break;
+    case 16: err = launch_tile<16, true>(entries, counts, scalars, stash, counts_out, cot, rows,
+                                         replay != 0, scratch, num_tiles, parts_x, p, s);
+      break;
+    case 32: err = launch_tile<32, true>(entries, counts, scalars, stash, counts_out, cot, rows,
+                                         replay != 0, scratch, num_tiles, parts_x, p, s);
+      break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (err != 0) return err;
+  if (parts > 1) {
+    const size_t n = static_cast<size_t>(num_tiles) * budget * kPackCols;
+    const size_t blocks = (n + 255) / 256;
+    sum_parts_kernel<<<blocks < 4096 ? blocks : 4096, 256, 0, s>>>(part_grads, grad, n, parts);
+  }
+  if (fill) {
+    fill_stash_kernel<<<num_tiles, 256, 0, s>>>(stash, part_ndone, ndone, tile, sub_edge,
+                                                parts_x, budget / chunk + 1);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -713,7 +850,7 @@ extern "C" int lara_blend_bwd(const float* entries, const int* counts,
                               float filter2d_invsq, void* stream) {
   return run(entries, counts, scalars, stash, ndone, cot, grad, replay, nullptr, num_tiles,
              tiles_x, tile, width, height, budget, chunk, alpha_min, t_min, near_cull,
-             dist_near, dist_far, filter2d_invsq, stream);
+             dist_near, dist_far, filter2d_invsq, stream, 0, nullptr, nullptr);
 }
 
 // The global form, for exactly the configs lara_blend_bwd refuses for their
@@ -731,5 +868,31 @@ extern "C" int lara_blend_bwd_global(const float* entries, const int* counts,
   if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return run(entries, counts, scalars, stash, ndone, cot, grad, replay,
              static_cast<unsigned*>(scratch), num_tiles, tiles_x, tile, width, height, budget,
-             chunk, alpha_min, t_min, near_cull, dist_near, dist_far, filter2d_invsq, stream);
+             chunk, alpha_min, t_min, near_cull, dist_near, dist_far, filter2d_invsq, stream, 0,
+             nullptr, nullptr);
+}
+
+// Any tile, as ceil(tile / sub_edge)^2 sub-tiles of sub_edge (8, 16 or 32):
+// the arguments of lara_blend_bwd_global, `scratch` null where the
+// sub-tile's shared form fits (smem_bytes at sub_edge), and where a tile
+// has more than one sub-tile, `part_grads`, f32 [parts, num_tiles, budget,
+// 13], and in replay mode with the stash outputs `part_ndone`, int32
+// [num_tiles, parts], both scratch. Each scratch region of the global form
+// is a sub-tile's: num_tiles x parts x 2 x kept x ceil(chunk / 32) x
+// sub_edge^2 words.
+extern "C" int lara_blend_bwd_sub(const float* entries, const int* counts,
+                                  const float* scalars, float* stash, int* ndone,
+                                  const float* cot, float* grad, int replay,
+                                  int num_tiles, int tiles_x, int tile, int width,
+                                  int height, int budget, int chunk,
+                                  float alpha_min, float t_min, float near_cull,
+                                  float dist_near, float dist_far,
+                                  float filter2d_invsq, void* stream, void* scratch,
+                                  int sub_edge, void* part_grads, void* part_ndone) {
+  if (sub_edge != 8 && sub_edge != 16 && sub_edge != 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return run(entries, counts, scalars, stash, ndone, cot, grad, replay,
+             static_cast<unsigned*>(scratch), num_tiles, tiles_x, tile, width, height, budget,
+             chunk, alpha_min, t_min, near_cull, dist_near, dist_far, filter2d_invsq, stream,
+             sub_edge, static_cast<float*>(part_grads), static_cast<int*>(part_ndone));
 }

@@ -34,6 +34,19 @@ constexpr int kMaxStaged = 512;
 // One block per kTile x kTile tile, two pixels per thread: pixel p and
 // p + kThreads, rows y and y + kTile / 2. The kernels are instantiated at
 // tiles 8, 16 and 32: 32, 128 and 512 threads.
+//
+// Sub-tiles. A tile of another edge t runs as parts_x^2 sub-tiles of an
+// instantiated edge kTile (parts_x = ceil(t / kTile); the wrapper picks
+// kTile, cuda_blend.subtile), one block each, row-major from the tile's
+// corner: the sub kernels (blend_fwd_sub_kernel, blend_bwd_sub_kernel) are
+// the same code with each pixel mapped into the tile (tile_pixel). Where
+// kTile does not divide t, a sub-tile's pixels past the tile's edge start
+// saturated: they never hit, never hold back the exit, are never written.
+// A sub-tile walks until its own pixels are saturated: a saturated pixel
+// adds nothing, so the accumulators are those of the whole tile's walk; the
+// stash of the tile's last processed chunk and its count are completed by
+// fill_stash_kernel, and the backward's per-sub-tile gradients are summed
+// in sub-tile order (blend_bwd.cu: sum_parts_kernel).
 template <int kTile>
 struct TileShape {
   static constexpr int kPixels = kTile * kTile;
@@ -46,7 +59,8 @@ struct Params {
   float alpha_min, t_min, near_cull, dist_near, dist_far, filter2d_invsq;
 };
 
-// The tile a block takes: the one of rank blockIdx.x when the tiles are
+// The tile a block takes: the one of rank `rank` (blockIdx.x, or the
+// block's tile rank when a tile runs as sub-tiles) when the tiles are
 // ordered by descending work, min(count, budget), ties by ascending index,
 // so the heaviest tiles start first and the light ones fill the last wave
 // (longest processing time first); every tile is taken by exactly one
@@ -55,7 +69,7 @@ struct Params {
 // against a tile's tens of microseconds. Every thread of the block calls it
 // (it synchronises). More than kThreads * order_per_thread(kThreads) tiles
 // (at least 1,024, the most that binning's 5-bit tile bounds allow) keep
-// the launch order. `scratch` is order_scratch(kThreads) ints of shared
+// the launch order (tile `rank`). `scratch` is order_scratch(kThreads) ints of shared
 // memory that no thread touches again before the block's next barrier (the
 // backward lends its dynamic shared memory: a static array would add to
 // every block's shared memory, and the replay backward at tile 16 and
@@ -67,11 +81,11 @@ __host__ __device__ constexpr int order_scratch(int threads) { return threads / 
 
 template <int kThreads>
 __device__ __forceinline__ int tile_of_block(const int* __restrict__ counts, int num_tiles,
-                                             int budget, int* scratch) {
+                                             int rank, int budget, int* scratch) {
   constexpr int kOrderPerThread = order_per_thread(kThreads);
   int* warp_sums = scratch;  // [kThreads / 32]
   int& picked = scratch[kThreads / 32];
-  if (num_tiles > kThreads * kOrderPerThread) return blockIdx.x;
+  if (num_tiles > kThreads * kOrderPerThread) return rank;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int per = (num_tiles + kThreads - 1) / kThreads;
   int c[kOrderPerThread];  // the work of tiles tid * per + i, -1 past the end
@@ -91,7 +105,7 @@ __device__ __forceinline__ int tile_of_block(const int* __restrict__ counts, int
     return sum;
   };
   // the work value of rank b: the least x with #{c > x} <= b
-  const int b = blockIdx.x;
+  const int b = rank;
   int lo = 0, hi = budget;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
@@ -132,6 +146,49 @@ __device__ __forceinline__ int tile_of_block(const int* __restrict__ counts, int
   }
   __syncthreads();
   return picked;
+}
+
+// The block of a sub-tiled launch: its tile's rank among the tiles and its
+// sub-tile (row-major in the tile, parts_x a side).
+struct SubBlock {
+  int rank, part;
+};
+
+__device__ __forceinline__ SubBlock sub_block(int parts_x) {
+  const int parts = parts_x * parts_x;
+  return SubBlock{static_cast<int>(blockIdx.x) / parts, static_cast<int>(blockIdx.x) % parts};
+}
+
+// The tile pixel (y * tile + x) of local pixel l of sub-tile `part` of an
+// edge-kTile instantiation, or -1 past the tile's edge.
+template <int kTile>
+__device__ __forceinline__ int tile_pixel(int l, int part, int parts_x, int tile) {
+  const int x = (part % parts_x) * kTile + l % kTile;
+  const int y = (part / parts_x) * kTile + l / kTile;
+  return (x < tile && y < tile) ? y * tile + x : -1;
+}
+
+// After a sub-tiled walk that wrote the stash [T][slots][4][tile^2]: each
+// sub-tile wrote its own processed-chunk count into part_ndone [T][parts]
+// and its carries up to that slot. A tile's count is the largest of its
+// sub-tiles' (the whole tile's walk stops after the chunk where its last
+// pixel saturates), and a sub-tile that stopped earlier holds its final
+// carry in every later slot up to it: a saturated pixel's carry does not
+// change. One block per tile.
+__global__ void fill_stash_kernel(float* __restrict__ stash, const int* __restrict__ part_ndone,
+                                  int* __restrict__ ndone, int tile, int sub_edge, int parts_x,
+                                  int slots) {
+  const int t = blockIdx.x, parts = parts_x * parts_x, pixels = tile * tile;
+  const int* own = part_ndone + static_cast<size_t>(t) * parts;
+  int nd = 0;
+  for (int i = 0; i < parts; ++i) nd = max(nd, own[i]);
+  if (threadIdx.x == 0) ndone[t] = nd;
+  float* s = stash + static_cast<size_t>(t) * slots * 4 * pixels;
+  for (int pix = threadIdx.x; pix < pixels; pix += blockDim.x) {
+    const int from = own[(pix / tile / sub_edge) * parts_x + pix % tile / sub_edge];
+    for (int ci = from + 1; ci <= nd; ++ci)
+      for (int j = 0; j < 4; ++j) s[(ci * 4 + j) * pixels + pix] = s[(from * 4 + j) * pixels + pix];
+  }
 }
 
 // Per view: focal lengths, image center, the distortion's depth map scale.

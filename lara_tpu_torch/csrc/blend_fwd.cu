@@ -6,7 +6,8 @@
 // and without its stash outputs (_run_fwd(stash=True)).
 //
 // What it computes. For each tile (8x8, 16x16 or 32x32: one template
-// instantiation each, P = tile^2 pixels), the depth-sorted window of packed
+// instantiation each, P = tile^2 pixels; any other edge as sub-tiles of one
+// of these, blend_common.cuh), the depth-sorted window of packed
 // rows [K, 13] (center_cam, au, bv, rgb, opacity) is composited front to
 // back into 10 raw accumulators per pixel: rgb, alpha, depth sum, median
 // depth, camera-space normal, distortion. Per (entry, pixel): ray-plane hit
@@ -105,38 +106,55 @@ __device__ __forceinline__ void composite(Acc& a, const Entry& en, const Hit& h,
   a.c.T = t_next;
 }
 
-// kSplit: the chunk is longer than kMaxStaged entries and is staged in
-// pieces. A template parameter, so that shorter chunks run the one-piece
-// code: 80 registers at tile 16 (91 with the piece loop at run time).
-template <int kTile, bool kSplit>
-__global__ void __launch_bounds__(TileShape<kTile>::kThreads) blend_fwd_kernel(
-    const float* __restrict__ entries, const int* __restrict__ counts,
-    const float* __restrict__ scalars, float* __restrict__ out, float* __restrict__ stash,
-    int* __restrict__ ndone, Params p) {
+// The walk of one block. kSplit: the chunk is longer than kMaxStaged
+// entries and is staged in pieces; a template parameter, so that shorter
+// chunks run the one-piece code: 80 registers at tile 16 (91 with the piece
+// loop at run time). kSubTiled: the block is one sub-tile of a tile of edge
+// p.tile (blend_common.cuh), parts_x a side; its stash count goes to
+// part_ndone [T][parts], its pixels to their places in the tile.
+template <int kTile, bool kSplit, bool kSubTiled>
+__device__ __forceinline__ void fwd_block(const float* __restrict__ entries,
+                                          const int* __restrict__ counts,
+                                          const float* __restrict__ scalars,
+                                          float* __restrict__ out, float* __restrict__ stash,
+                                          int* __restrict__ ndone, Params p,
+                                          int parts_x) {
   constexpr int kPixels = TileShape<kTile>::kPixels, kThreads = TileShape<kTile>::kThreads;
   extern __shared__ float4 rec[];  // [min(chunk, kMaxStaged)][kRecords]
   __shared__ int order[order_scratch(kThreads)];
-  const int t = tile_of_block<kThreads>(counts, gridDim.x, p.budget, order);
+  const SubBlock sb = kSubTiled ? sub_block(parts_x) : SubBlock{static_cast<int>(blockIdx.x), 0};
+  const int num_tiles = kSubTiled ? gridDim.x / (parts_x * parts_x) : gridDim.x;
+  const int t = tile_of_block<kThreads>(counts, num_tiles, sb.rank, p.budget, order);
   const int tid = threadIdx.x;
+  // the thread's two pixels in the tile (-1 past a sub-tiled tile's edge)
+  const int pixels = kSubTiled ? p.tile * p.tile : kPixels;
+  const int i0 = kSubTiled ? tile_pixel<kTile>(tid, sb.part, parts_x, p.tile) : tid;
+  const int i1 = kSubTiled ? tile_pixel<kTile>(tid + kThreads, sb.part, parts_x, p.tile)
+                      : tid + kThreads;
   const int n = min(counts[t], p.budget);
   const View v = make_view(scalars, p);
-  const Pixel q0 = make_pixel(t, tid, p, v);
-  const Pixel q1 = make_pixel(t, tid + kThreads, p, v);
+  const Pixel q0 = make_pixel(t, kSubTiled ? max(i0, 0) : i0, p, v);
+  const Pixel q1 = make_pixel(t, kSubTiled ? max(i1, 0) : i1, p, v);
   Acc a0{}, a1{};
-  a0.c.T = a1.c.T = 1.0f;
+  a0.c.T = kSubTiled && i0 < 0 ? -1.0f : 1.0f;  // past the edge: saturated from the start
+  a1.c.T = kSubTiled && i1 < 0 ? -1.0f : 1.0f;
 
   // stash slot ci of this tile and pixel: stash[t][ci][j][pixel]
   const int slots = p.budget / p.chunk + 1;
+  // the thread's first pixel (one block a tile) or the tile's corner
+  // (sub-tiles), and each pixel from there
+  const int base = kSubTiled ? 0 : tid, off0 = kSubTiled ? i0 : 0;
+  const int off1 = kSubTiled ? i1 : kThreads;
   auto stash_carry = [&](int ci) {
-    float* s = stash + (static_cast<size_t>(t) * slots + ci) * 4 * kPixels + tid;
+    float* s = stash + (static_cast<size_t>(t) * slots + ci) * 4 * pixels + base;
     auto put = [&](const Carry& c, float* sh) {
       sh[0] = c.T;
-      sh[kPixels] = c.A;
-      sh[2 * kPixels] = c.M1;
-      sh[3 * kPixels] = c.M2;
+      sh[pixels] = c.A;
+      sh[2 * pixels] = c.M1;
+      sh[3 * pixels] = c.M2;
     };
-    put(a0.c, s);
-    put(a1.c, s + kThreads);
+    if (!kSubTiled || i0 >= 0) put(a0.c, s + off0);
+    if (!kSubTiled || i1 >= 0) put(a1.c, s + off1);
   };
 
   const float* tile_rows = entries + static_cast<size_t>(t) * p.budget * kPackCols;
@@ -175,24 +193,43 @@ __global__ void __launch_bounds__(TileShape<kTile>::kThreads) blend_fwd_kernel(
   }
   if (stash != nullptr) {
     stash_carry(ci);
-    if (tid == 0) ndone[t] = ci;
+    if (tid == 0) ndone[kSubTiled ? t * parts_x * parts_x + sb.part : t] = ci;
   }
 
-  float* o = out + static_cast<size_t>(t) * kNumChannels * kPixels + tid;
+  float* o = out + static_cast<size_t>(t) * kNumChannels * pixels + base;
   auto write = [&](const Acc& a, float* oh) {
-    oh[0 * kPixels] = a.r;
-    oh[1 * kPixels] = a.g;
-    oh[2 * kPixels] = a.b;
-    oh[3 * kPixels] = a.c.A;
-    oh[4 * kPixels] = a.dsum;
-    oh[5 * kPixels] = a.med;
-    oh[6 * kPixels] = a.nx;
-    oh[7 * kPixels] = a.ny;
-    oh[8 * kPixels] = a.nz;
-    oh[9 * kPixels] = a.dist;
+    oh[0 * pixels] = a.r;
+    oh[1 * pixels] = a.g;
+    oh[2 * pixels] = a.b;
+    oh[3 * pixels] = a.c.A;
+    oh[4 * pixels] = a.dsum;
+    oh[5 * pixels] = a.med;
+    oh[6 * pixels] = a.nx;
+    oh[7 * pixels] = a.ny;
+    oh[8 * pixels] = a.nz;
+    oh[9 * pixels] = a.dist;
   };
-  write(a0, o);
-  write(a1, o + kThreads);
+  if (!kSubTiled || i0 >= 0) write(a0, o + off0);
+  if (!kSubTiled || i1 >= 0) write(a1, o + off1);
+}
+
+// One block per tile of edge kTile.
+template <int kTile, bool kSplit>
+__global__ void __launch_bounds__(TileShape<kTile>::kThreads) blend_fwd_kernel(
+    const float* __restrict__ entries, const int* __restrict__ counts,
+    const float* __restrict__ scalars, float* __restrict__ out, float* __restrict__ stash,
+    int* __restrict__ ndone, Params p) {
+  fwd_block<kTile, kSplit, false>(entries, counts, scalars, out, stash, ndone, p, 1);
+}
+
+// One block per sub-tile of edge kTile, parts_x^2 per tile of edge p.tile;
+// ndone: the sub-tiles' counts [T][parts_x^2].
+template <int kTile, bool kSplit>
+__global__ void __launch_bounds__(TileShape<kTile>::kThreads) blend_fwd_sub_kernel(
+    const float* __restrict__ entries, const int* __restrict__ counts,
+    const float* __restrict__ scalars, float* __restrict__ out, float* __restrict__ stash,
+    int* __restrict__ ndone, Params p, int parts_x) {
+  fwd_block<kTile, kSplit, true>(entries, counts, scalars, out, stash, ndone, p, parts_x);
 }
 
 // At least this much dynamic shared memory per block, so that at most 20
@@ -219,11 +256,33 @@ int launch(const float* entries, const int* counts, const float* scalars, float*
   return static_cast<int>(cudaGetLastError());
 }
 
+// The sub-tiled launch: num_tiles x parts_x^2 blocks of edge kTile; with a
+// stash, the sub-tiles' counts (into part_ndone, or straight into ndone when
+// a tile is one sub-tile), then fill_stash_kernel.
+template <int kTile>
+int launch_sub(const float* entries, const int* counts, const float* scalars, float* out,
+               float* stash, int* ndone, int* part_ndone, int num_tiles, int parts_x,
+               const Params& p, cudaStream_t stream) {
+  const bool split = p.chunk > kMaxStaged;
+  const size_t records = sizeof(float4) * kRecords * (split ? kMaxStaged : p.chunk);
+  const size_t smem = records > min_smem<kTile>() ? records : min_smem<kTile>();
+  auto kernel = split ? blend_fwd_sub_kernel<kTile, true> : blend_fwd_sub_kernel<kTile, false>;
+  const bool fill = stash != nullptr && parts_x > 1;
+  kernel<<<num_tiles * parts_x * parts_x, TileShape<kTile>::kThreads, smem, stream>>>(
+      entries, counts, scalars, out, stash, fill ? part_ndone : ndone, p, parts_x);
+  if (fill) {
+    fill_stash_kernel<<<num_tiles, 256, 0, stream>>>(stash, part_ndone, ndone, p.tile, kTile,
+                                                     parts_x, p.budget / p.chunk + 1);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // `stash` and `ndone` may be null (no stash); otherwise stash is f32
 // [num_tiles, budget/chunk + 1, 4, tile*tile] and ndone int32 [num_tiles].
-// tile must be 8, 16 or 32; chunk must divide budget.
+// tile must be 8, 16 or 32 (lara_blend_fwd_sub takes the others); chunk
+// must divide budget.
 extern "C" int lara_blend_fwd(const float* entries, const int* counts,
                               const float* scalars, float* out, float* stash,
                               int* ndone, int num_tiles,
@@ -240,6 +299,36 @@ extern "C" int lara_blend_fwd(const float* entries, const int* counts,
     case 8: return launch<8>(entries, counts, scalars, out, stash, ndone, num_tiles, p, s);
     case 16: return launch<16>(entries, counts, scalars, out, stash, ndone, num_tiles, p, s);
     case 32: return launch<32>(entries, counts, scalars, out, stash, ndone, num_tiles, p, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Any tile, as ceil(tile / sub_edge)^2 sub-tiles of sub_edge (8, 16 or 32)
+// each: the same arguments as lara_blend_fwd, and with a stash, where a
+// tile has more than one sub-tile, `part_ndone`, int32 [num_tiles,
+// ceil(tile / sub_edge)^2] of scratch.
+extern "C" int lara_blend_fwd_sub(const float* entries, const int* counts,
+                                  const float* scalars, float* out, float* stash,
+                                  int* ndone, int num_tiles,
+                                  int tiles_x, int tile, int width, int height,
+                                  int budget, int chunk, float alpha_min,
+                                  float t_min, float near_cull, float dist_near,
+                                  float dist_far, float filter2d_invsq,
+                                  void* stream, int sub_edge, int* part_ndone) {
+  if (chunk <= 0 || budget % chunk != 0 || tile <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int parts_x = (tile + sub_edge - 1) / sub_edge;
+  if (stash != nullptr && parts_x > 1 && part_ndone == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p{tiles_x, tile, width, height, budget, chunk,
+           alpha_min, t_min, near_cull, dist_near, dist_far, filter2d_invsq};
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (sub_edge) {
+    case 8: return launch_sub<8>(entries, counts, scalars, out, stash, ndone, part_ndone,
+                                 num_tiles, parts_x, p, s);
+    case 16: return launch_sub<16>(entries, counts, scalars, out, stash, ndone, part_ndone,
+                                   num_tiles, parts_x, p, s);
+    case 32: return launch_sub<32>(entries, counts, scalars, out, stash, ndone, part_ndone,
+                                   num_tiles, parts_x, p, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -42,14 +42,18 @@ _COMMON = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _BLEND_FLAGS = _COMMON + ["--fmad=false"]
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+_BLEND_FWD_ARGS = [_P] * 6 + [_I] * 7 + [_F] * 6 + [_P]
 _BLEND_BWD_ARGS = [_P] * 7 + [_I] * 8 + [_F] * 6 + [_P]
-# name -> (source, nvcc flags, {C entry point: argtypes})
+# name -> (source, nvcc flags, {C entry point: argtypes}); the `_sub` entry
+# points run the tiles without an instantiation as sub-tiles
 _KERNELS = {
     "blend_fwd": ("blend_fwd.cu", _BLEND_FLAGS,
-                  {"lara_blend_fwd": [_P] * 6 + [_I] * 7 + [_F] * 6 + [_P]}),
+                  {"lara_blend_fwd": _BLEND_FWD_ARGS,
+                   "lara_blend_fwd_sub": _BLEND_FWD_ARGS + [_I, _P]}),
     "blend_bwd": ("blend_bwd.cu", _BLEND_FLAGS,
                   {"lara_blend_bwd": _BLEND_BWD_ARGS,
-                   "lara_blend_bwd_global": _BLEND_BWD_ARGS + [_P]}),
+                   "lara_blend_bwd_global": _BLEND_BWD_ARGS + [_P],
+                   "lara_blend_bwd_sub": _BLEND_BWD_ARGS + [_P, _I, _P, _P]}),
     "flash_fwd": ("flash_fwd.cu", _COMMON,
                   {"lara_flash_fwd": [_P] * 6 + [_I] * 5 + [_L] * 6 + [_F, _I, _P]}),
     "flash_bwd": ("flash_bwd.cu", _COMMON,

@@ -19,15 +19,34 @@ blend, unnormalized depth).
     launched raises: nothing falls back.
 
 The kernels are instantiated at tiles 8, 16 and 32 (`TILES`; one block of
-tile²/2 threads per tile); another tile raises on a CUDA tensor. Each
-wrapper counts its launches in `LAUNCHES` (forward, forward with stash,
-backward from the stash, replay backward), per tile: `launch_key` names
-the tile-16 counts as before ("blend_fwd") and the others with the tile
-("blend_fwd_t32"). The backward has two forms, chosen by (tile, budget,
-chunk, mode) alone (`bwd_form`): the hit bits and end values of the
-chunks it keeps live in shared memory where that fits a block's 232,448 B,
-else in a scratch buffer the wrapper allocates. The libraries are built by
-`lara_tpu_torch/ops/_build.py`.
+tile²/2 threads per tile, two pixels a thread). Any other tile edge t runs
+as sub-tiles: ⌈t/s⌉² blocks of an instantiated edge s (`subtile`), each
+given its pixels' places in the tile; where s does not divide t, the
+pixels past the tile's edge start saturated and are never written. The
+rule for s: the edge of `TILES` that launches the fewest pixels,
+⌈t/s⌉²·s², ties to the larger edge (fewer blocks): 64 → 32 (4 sub-tiles),
+48 → 16 (9), 24 → 8 (9), 12 → 16 (one, 144 of its 256 pixels in the
+tile), 20 → 8 (9, masked), 4 → 8 (one). A sub-tile walks until its own
+pixels are saturated, which leaves every pixel's accumulators as the
+whole tile's walk leaves them; the stash forward (and the replay when it
+writes its walk) then gives each tile the largest of its sub-tiles'
+processed-chunk counts and carries every sub-tile's final carry up to
+that slot (`blend_common.cuh:fill_stash_kernel`), so the stash and ndone
+are per tile exactly as at an instantiated edge. The backward writes each
+sub-tile's rows [parts, T, K, 13] and sums them in sub-tile order
+(`blend_bwd.cu:sum_parts_kernel`, no atomics: two calls agree bit for
+bit, and the replay equals the stash path bit for bit). Shared memory,
+threads, the reduction group and the backward's form follow the
+sub-tile's edge (`bwd_smem(tile, ...)` takes the tile and maps it).
+
+Each wrapper counts its launches in `LAUNCHES` (forward, forward with
+stash, backward from the stash, replay backward), per tile: `launch_key`
+names the tile-16 counts as before ("blend_fwd") and the others with the
+tile ("blend_fwd_t32", "blend_fwd_t64"). The backward has two forms,
+chosen by (tile, budget, chunk, mode) alone (`bwd_form`): the hit bits and
+end values of the chunks it keeps live in shared memory where that fits a
+block's 232,448 B, else in a scratch buffer the wrapper allocates. The
+libraries are built by `lara_tpu_torch/ops/_build.py`.
 """
 
 from __future__ import annotations
@@ -39,7 +58,7 @@ from lara_tpu_torch.ops.rasterizer.types import RasterizeConfig
 
 NUM_CHANNELS = 10   # rgb3 + alpha + depth_sum + depth_med + normal3 + dist
 PACK_COLS = 13
-TILES = (8, 16, 32)
+TILES = (8, 16, 32)         # instantiated edges: one block per tile
 KINDS = ("blend_fwd", "blend_fwd_stash", "blend_bwd", "blend_bwd_replay")
 # dynamic shared memory a block may ask for on sm_90; a backward whose kept
 # hit bits would pass it takes the global form (blend_bwd.cu)
@@ -50,38 +69,61 @@ SUB = 32            # entries per sub-block of the backward: one word of hit bit
 PARTIALS = 19       # per-entry partial gradients summed over a tile's pixels
 
 
+def subtile(tile: int) -> int:
+    """The instantiated edge that runs `tile`: the tile itself at 8, 16 and
+    32, else the edge of TILES whose sub-tiles launch the fewest pixels,
+    ties to the larger edge (see the module's docstring)."""
+    if tile in TILES:
+        return tile
+    if tile < 1:
+        raise ValueError(f"a tile has at least one pixel, not {tile}")
+    return min(TILES, key=lambda s: ((-(-tile // s) * s) ** 2, -s))
+
+
+def parts_x(tile: int) -> int:
+    """Sub-tiles a side of a tile (1 at an instantiated edge)."""
+    return -(-tile // subtile(tile))
+
+
 def launch_key(kind: str, tile: int) -> str:
     """The `LAUNCHES` key of kernel `kind` at `tile`."""
     return kind if tile == 16 else f"{kind}_t{tile}"
 
 
-LAUNCHES = {launch_key(k, t): 0 for t in TILES for k in KINDS}
+# every launch is counted under its tile's key; the keys of the
+# instantiated edges and of the sub-tiled tiles the checks run exist from
+# the start, another tile's from its first launch
+LAUNCHES = {launch_key(k, t): 0 for t in TILES + (4, 12, 20, 24, 48, 64) for k in KINDS}
 # the kernel behind each instantiation, as ptxas names it in the build log:
-# (launch kind, tile, global form, split: the chunk staged in pieces or
-# reduced in groups, `split_chunk`)
-KERNELS = {f"blend_fwd_kernel<{t}, {s}>": ("blend_fwd", t, False, bool(s))
-           for t in TILES for s in (0, 1)}
-KERNELS.update({f"blend_bwd_kernel<{t}, {r}, {g}, {s}>": (KINDS[2 + r], t, bool(g), bool(s))
-                for t in TILES for r in (0, 1) for g in (0, 1) for s in (0, 1)})
+# (launch kind, edge, global form, split: the chunk staged in pieces or
+# reduced in groups, `split_chunk`; sub: the sub-tiled kernel)
+KERNELS = {f"blend_fwd{sub}_kernel<{t}, {s}>": ("blend_fwd", t, False, bool(s), bool(sub))
+           for sub in ("", "_sub") for t in TILES for s in (0, 1)}
+KERNELS.update({f"blend_bwd{sub}_kernel<{t}, {r}, {g}, {s}>":
+                (KINDS[2 + r], t, bool(g), bool(s), bool(sub))
+                for sub in ("", "_sub") for t in TILES for r in (0, 1) for g in (0, 1)
+                for s in (0, 1)})
 
 
 def threads(tile: int) -> int:
-    """Threads per block of every blend kernel: two pixels each."""
-    return tile * tile // 2
+    """Threads per block of every blend kernel at `tile`: two pixels each
+    of its (sub-)tile."""
+    edge = subtile(tile)
+    return edge * edge // 2
 
 
 def fwd_min_smem(tile: int) -> int:
     """Dynamic shared memory the forward asks for at least, so that at most
-    20 warps share an SM (blend_fwd.cu, min_smem): 5 blocks at tile 16, 20
-    at tile 8; none at tile 32, whose registers allow one block."""
+    20 warps share an SM (blend_fwd.cu, min_smem): 5 blocks at edge 16, 20
+    at edge 8; none at edge 32, whose registers allow one block."""
     blocks = 20 // (threads(tile) // 32)
     return 233472 // (blocks + 1) - 1024 + 16 if blocks >= 2 else 0
 
 
 def reduce_group(tile: int) -> int:
     """Entries whose per-warp partials the backward reduces together, at
-    most (blend_bwd.cu, reduce_group)."""
-    return 128 if tile == 16 else SUB
+    most (blend_bwd.cu, reduce_group of the edge)."""
+    return 128 if subtile(tile) == 16 else SUB
 
 
 def split_chunk(kind: str, tile: int, chunk: int) -> bool:
@@ -96,12 +138,14 @@ def _kept(chunk: int, budget: int, replay: bool) -> int:
 
 
 def bwd_smem(tile: int, chunk: int, budget: int, replay: bool, global_form: bool) -> int:
-    """`blend_bwd.cu:smem_bytes`: the staged records (at most MAX_STAGED
-    entries), the hit bits and end transmittance of each 32-entry sub-block
-    of one chunk (stash mode) or of every chunk of the budget (replay mode)
-    for the tile's pixels, in the shared form only, and the per-warp
-    partials of a reduction group."""
-    pixels, nsub = tile * tile, -(-chunk // SUB)
+    """`blend_bwd.cu:smem_bytes` at the edge that runs `tile`: the staged
+    records (at most MAX_STAGED entries), the hit bits and end
+    transmittance of each 32-entry sub-block of one chunk (stash mode) or
+    of every chunk of the budget (replay mode) for the (sub-)tile's pixels,
+    in the shared form only, and the per-warp partials of a reduction
+    group."""
+    edge = subtile(tile)
+    pixels, nsub = edge * edge, -(-chunk // SUB)
     bits = 0 if global_form else 2 * _kept(chunk, budget, replay) * nsub * pixels
     return 4 * (RECORD * min(chunk, MAX_STAGED) + bits
                 + pixels // 64 * min(chunk, reduce_group(tile)) * PARTIALS)
@@ -119,11 +163,12 @@ def bwd_form(cfg: RasterizeConfig, replay: bool) -> str:
 
 
 def scratch_words(cfg: RasterizeConfig, replay: bool) -> int:
-    """32-bit words of the global form's scratch: per tile, the hit bits and
-    end values of every sub-block of the kept chunks."""
-    nsub = -(-cfg.pallas_chunk // SUB)
-    return (cfg.num_tiles * 2 * _kept(cfg.pallas_chunk, cfg.tile_budget, replay) * nsub
-            * cfg.tile * cfg.tile)
+    """32-bit words of the global form's scratch: per tile and sub-tile,
+    the hit bits and end values of every sub-block of the kept chunks for
+    its pixels."""
+    nsub, edge = -(-cfg.pallas_chunk // SUB), subtile(cfg.tile)
+    return (cfg.num_tiles * parts_x(cfg.tile) ** 2 * 2
+            * _kept(cfg.pallas_chunk, cfg.tile_budget, replay) * nsub * edge * edge)
 
 
 def kernel_smem(chunk: int, budget: int | None = None, tile: int = 16) -> dict:
@@ -159,12 +204,6 @@ def _check_inputs(entries, counts, scalars, cfg: RasterizeConfig):
     return t, p
 
 
-def _check_tile(cfg: RasterizeConfig) -> None:
-    if cfg.tile not in TILES:
-        raise ValueError(f"the blend kernels take tiles of 8, 16 and 32 pixels, "
-                         f"not {cfg.tile}")
-
-
 def _cuda_args(dev, *tensors):
     for x in tensors:
         if x.device != dev:
@@ -185,7 +224,7 @@ def blend_fwd(entries, counts, scalars, cfg: RasterizeConfig, stash: bool = Fals
     [T, budget/chunk + 1, 4, P] (slots past ndone unwritten) and the
     processed-chunk counts ndone int32 [T]."""
     t, p = _check_inputs(entries, counts, scalars, cfg)
-    _check_tile(cfg)
+    edge, parts = subtile(cfg.tile), parts_x(cfg.tile) ** 2
     entries, counts, scalars = _cuda_args(entries.device, entries, counts, scalars)
     dev = entries.device
     lib = _build.build_library()["blend_fwd"]
@@ -197,20 +236,27 @@ def blend_fwd(entries, counts, scalars, cfg: RasterizeConfig, stash: bool = Fals
         ndone = torch.empty((t,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.lara_blend_fwd(
-            entries.data_ptr(), counts.data_ptr(), scalars.data_ptr(),
-            out.data_ptr(), None if carries is None else carries.data_ptr(),
-            None if ndone is None else ndone.data_ptr(),
-            *_raster_args(cfg), stream)
+        args = [entries.data_ptr(), counts.data_ptr(), scalars.data_ptr(),
+                out.data_ptr(), None if carries is None else carries.data_ptr(),
+                None if ndone is None else ndone.data_ptr(), *_raster_args(cfg), stream]
+        if edge == cfg.tile:
+            err = lib.lara_blend_fwd(*args)
+        else:
+            # the sub-tiles' counts, for the stash's fill
+            part_ndone = (torch.empty((t, parts), dtype=torch.int32, device=dev)
+                          if stash and parts > 1 else None)
+            err = lib.lara_blend_fwd_sub(
+                *args, edge, None if part_ndone is None else part_ndone.data_ptr())
     _build.raise_on(err, "blend_fwd")
-    LAUNCHES[launch_key("blend_fwd_stash" if stash else "blend_fwd", cfg.tile)] += 1
+    key = launch_key("blend_fwd_stash" if stash else "blend_fwd", cfg.tile)
+    LAUNCHES[key] = LAUNCHES.get(key, 0) + 1
     return (out, carries, ndone) if stash else out
 
 
 def _launch_bwd(entries, counts, scalars, carries, ndone, cot,
                 cfg: RasterizeConfig, replay: bool) -> torch.Tensor:
     _check_inputs(entries, counts, scalars, cfg)
-    _check_tile(cfg)
+    edge, parts = subtile(cfg.tile), parts_x(cfg.tile) ** 2
     dev = entries.device
     entries, counts, scalars, cot = _cuda_args(
         dev, entries, counts, scalars, cot.to(torch.float32))
@@ -224,14 +270,28 @@ def _launch_bwd(entries, counts, scalars, carries, ndone, cot,
             grad.data_ptr(), int(replay), *_raster_args(cfg)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        scratch = None
         if bwd_form(cfg, replay) == "global":
             scratch = torch.empty((scratch_words(cfg, replay),), dtype=torch.int32, device=dev)
+        if edge != cfg.tile:
+            # each sub-tile's rows, summed in order; the sub-tiles' counts of
+            # a replay that writes its walk, for the fill
+            part_grads = torch.empty((parts,) + grad.shape, dtype=torch.float32,
+                                     device=dev) if parts > 1 else None
+            part_ndone = (torch.empty((entries.shape[0], parts), dtype=torch.int32, device=dev)
+                          if replay and carries is not None and parts > 1 else None)
+            err = lib.lara_blend_bwd_sub(
+                *args, stream, None if scratch is None else scratch.data_ptr(), edge,
+                None if part_grads is None else part_grads.data_ptr(),
+                None if part_ndone is None else part_ndone.data_ptr())
+        elif scratch is not None:
             err = lib.lara_blend_bwd_global(*args, stream, scratch.data_ptr())
         else:
             err = lib.lara_blend_bwd(*args, stream)
     kind = "blend_bwd_replay" if replay else "blend_bwd"
     _build.raise_on(err, kind)
-    LAUNCHES[launch_key(kind, cfg.tile)] += 1
+    key = launch_key(kind, cfg.tile)
+    LAUNCHES[key] = LAUNCHES.get(key, 0) + 1
     return grad
 
 

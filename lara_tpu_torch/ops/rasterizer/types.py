@@ -16,7 +16,8 @@ class RasterizeConfig:
 
     height/width: output image extent in pixels (multiples of `tile`).
     tile:        square tile edge in pixels (16 → 256 px per tile); the CUDA
-                 blend kernels take 8, 16 and 32 (two pixels per thread).
+                 blend kernels run 8, 16 and 32 natively (two pixels per
+                 thread) and any other edge as sub-tiles of one of them.
     dup:         each surfel claims up to dup×dup tiles; its screen radius
                  is clamped to (dup-1)*tile/2 px.
     tile_budget: max depth-sorted entries composited per tile.

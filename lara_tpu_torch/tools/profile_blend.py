@@ -1,12 +1,14 @@
 """Where the time of the blend kernels goes, on one CUDA GPU.
 
-    python -m lara_tpu_torch.tools.profile_blend [--reps 50] [--parent DIR]
+    python -m lara_tpu_torch.tools.profile_blend [--reps 50] [--parent DIR] [--tile 16]
 
 Run from the repository root. On two scenes of 524,288 surfels at 512²,
 the random one of the coarse decoder at init (`chip_smoke.random_scene`)
 and `tools/workload.py:lara_workload` (the statistics of a trained scene),
 each binned at the train (K 128, V 131,072) and eval (K 512, V 262,144)
-raster configs with chunk 64, it prints:
+raster configs with chunk 64, it prints (at another `--tile`, any the
+wrappers take, the budgets scale with the tile's pixels, 0.5 and 2 entries
+a pixel, and the flagship's request and micro-step use that tile too):
   1. the `nvidia-smi` name and power limit of the card;
   2. per kernel (the forward, the stash forward, the backward from the
      stash, the replay backward) the device ms per call queued behind a
@@ -26,7 +28,7 @@ raster configs with chunk 64, it prints:
   5. the window kernel on `lara_workload`'s sorted keys at K 128 and 512,
      beside a kernel that does nothing (`torch.cuda._sleep(0)`, the floor
      of any queued launch) and the bound;
-  6. each tile-16 blend kernel's registers and spills (from the build log),
+  6. each blend kernel's registers and spills at the tile (from the build log),
      its threads and shared memory per block at chunk 64 (budgets 128 and
      512), and the blocks per SM they allow; with `--parent`, the parent's
      registers and spills too.
@@ -35,7 +37,8 @@ example the parent commit unpacked by `git archive`), the kernels are also
 built from its `lara_tpu_torch/csrc`: every time above is taken for both
 versions in turns (parent, change, change, parent, in one process, on the
 same inputs), and each kernel's outputs of the two versions are compared
-bit for bit.
+bit for bit; the parent must run the tile (one of 8, 16 and 32 before the
+sub-tiled kernels).
 """
 
 from __future__ import annotations
@@ -151,15 +154,31 @@ def profile_windows(entries, counts, scalars, cfg, reps: int, versions) -> dict:
     return res, pairs
 
 
-def request_windows(dev) -> list:
+def budgets(tile: int) -> dict:
+    """CONFIGS' tile budgets at `tile`: the same entries per pixel."""
+    return {name: (budget * tile * tile // 256, visible)
+            for name, (budget, visible) in CONFIGS.items()}
+
+
+def flagship(tile: int):
+    """`Config()` at `tile` with its train and eval budgets (`budgets`)."""
+    import dataclasses
+
+    from lara_tpu_torch.config import Config
+
+    cfg, b = Config(), budgets(tile)
+    return dataclasses.replace(cfg, render=dataclasses.replace(
+        cfg.render, tile=tile, tile_budget=b["train"][0], eval_tile_budget=b["eval"][0]))
+
+
+def request_windows(dev, tile: int = 16) -> list:
     """The (entries, counts, scalars, cfg) of every forward launch of one
     flagship serving request (`make_forward`, seeded random weights)."""
     from chip_smoke import make_batch
-    from lara_tpu_torch.config import Config
     from lara_tpu_torch.models import LaRaNet
     from lara_tpu_torch.train.step import make_forward
 
-    cfg = Config()
+    cfg = flagship(tile)
     net = LaRaNet(cfg, dtype=torch.bfloat16, device=dev,
                   generator=torch.Generator().manual_seed(0))
     launched, blend_fwd = [], cuda_blend.blend_fwd
@@ -176,18 +195,17 @@ def request_windows(dev) -> list:
     return launched
 
 
-def train_windows(dev) -> list:
+def train_windows(dev, tile: int = 16) -> list:
     """The (entries, counts, scalars, cot, cfg) of every replay-backward
     launch of one flagship fine micro-step with flash attention and the
     replay backward (`make_train_step` from micro-step 2002, B=3, seeded
     random weights): 24 coarse and 24 fine renders."""
     from chip_smoke import make_batch, with_knobs
-    from lara_tpu_torch.config import Config
     from lara_tpu_torch.models import LaRaNet
     from lara_tpu_torch.train.state import TrainState
     from lara_tpu_torch.train.step import make_train_step
 
-    cfg = with_knobs(Config())
+    cfg = with_knobs(flagship(tile))
     net = LaRaNet(cfg, dtype=torch.bfloat16, device=dev,
                   generator=torch.Generator().manual_seed(0))
     batch = make_batch(11, cfg.n_views, dev, scenes=cfg.train.batch_size)
@@ -208,13 +226,13 @@ def train_windows(dev) -> list:
     return launched
 
 
-def profile_train_windows(dev, versions) -> dict:
+def profile_train_windows(dev, versions, tile: int = 16) -> dict:
     """The replay backward, and the stash forward + backward, on a training
     micro-step's own 48 windows, queued in all; the replay's gradients
     equal the stash path's bit for bit."""
     from chip_smoke import BLEND_OPS, F32_FLOPS, blend_pairs, bound, nbytes
 
-    launched = train_windows(dev)
+    launched = train_windows(dev, tile)
     torch.cuda.empty_cache()
     stash = [cuda_blend.blend_fwd(e, c, s, cfg, stash=True) for e, c, s, _, cfg in launched]
     grads = [cuda_blend.blend_bwd(e, c, s, st[1], st[2], cot, cfg)
@@ -283,7 +301,7 @@ def profile_window_kernel(dev, versions) -> dict:
     return res
 
 
-def run(reps: int = 50, parent: str | None = None) -> dict:
+def run(reps: int = 50, parent: str | None = None, tile: int = 16) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("profile_blend needs a CUDA device")
     from chip_smoke import (BLEND_OPS, F32_FLOPS, H, N_SURFELS, W, blend_occupancy, blend_pairs,
@@ -301,8 +319,8 @@ def run(reps: int = 50, parent: str | None = None) -> dict:
     scenes = {"random": random_scene(N_SURFELS, 0, dev), "lara_workload": workload_scene(dev)}
     res = {}
     for scene_name, scene in scenes.items():
-        for cfg_name, (budget, visible) in CONFIGS.items():
-            cfg = RasterizeConfig(height=H, width=W, tile=16, dup=3, tile_budget=budget,
+        for cfg_name, (budget, visible) in budgets(tile).items():
+            cfg = RasterizeConfig(height=H, width=W, tile=tile, dup=3, tile_budget=budget,
                                   visible_budget=visible, pallas_chunk=CHUNK)
             entries, counts, scalars = windows(scene, cfg, cam)
             times, pairs = profile_windows(entries, counts, scalars, cfg, reps, versions)
@@ -311,10 +329,10 @@ def run(reps: int = 50, parent: str | None = None) -> dict:
                 report(f"{scene_name} {cfg_name} {name}", ts, pairs, (bnd, by), same)
     del scenes
 
-    launched = request_windows(dev)
+    launched = request_windows(dev, tile)
     pairs = sum(blend_pairs(c, cuda_blend.blend_fwd(e, c, s, cfg, stash=True)[2], cfg)
                 for e, c, s, cfg in launched)
-    moved = sum(nbytes(e, c, s) + 4 * cuda_blend.NUM_CHANNELS * e.shape[0] * 256
+    moved = sum(nbytes(e, c, s) + 4 * cuda_blend.NUM_CHANNELS * e.shape[0] * tile * tile
                 for e, c, s, _ in launched)
 
     def request_all():
@@ -328,19 +346,19 @@ def run(reps: int = 50, parent: str | None = None) -> dict:
     del launched
     torch.cuda.empty_cache()
 
-    res["train"] = profile_train_windows(dev, versions)
+    res["train"] = profile_train_windows(dev, versions, tile)
     torch.cuda.empty_cache()
     res["windows"] = profile_window_kernel(dev, versions)
 
     resources = _build.kernel_resources(_build.build_log)
-    for budget in CONFIGS.values():
-        occupancy = {k: v for k, v in blend_occupancy(resources, CHUNK, budget[0]).items()
+    for budget in budgets(tile).values():
+        occupancy = {k: v for k, v in blend_occupancy(resources, CHUNK, budget[0], tile).items()
                      if v[4]}
         for name, (threads, smem, regs, blocks, _) in occupancy.items():
             r = resources[name]
             print(f"[blend] {name}: {regs} registers, spill stores {r['spill_stores']} B, loads "
                   f"{r['spill_loads']} B; {threads} threads, {smem} B shared memory per block "
-                  f"at budget {budget[0]} chunk {CHUNK}: {blocks} blocks per SM")
+                  f"at tile {tile} budget {budget[0]} chunk {CHUNK}: {blocks} blocks per SM")
         res[("occupancy", budget[0])] = occupancy
     if parent is not None:
         csrc = Path(parent) / "lara_tpu_torch" / "csrc"
@@ -358,8 +376,10 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--parent", default=None,
                     help="root of another checkout whose kernels are timed in turns with these")
+    ap.add_argument("--tile", type=int, default=16,
+                    help="tile edge of the windows and the flagship (budgets scale with it)")
     args = ap.parse_args(argv)
-    run(args.reps, args.parent)
+    run(args.reps, args.parent, args.tile)
     return 0
 
 

@@ -2,7 +2,7 @@
 the port of `tools/profile_rasterizer.py`, `tools/profile_raster.py` and
 `tools/profile_chain_bwd.py`.
 
-    python -m lara_tpu_torch.tools.profile_rasterizer [--device cuda] [--size 512] [--n 524288] [--quick]
+    python -m lara_tpu_torch.tools.profile_rasterizer [--device cuda] [--size 512] [--n 524288] [--tiles 32 64] [--quick]
 
 On `lara_workload` from the bench camera, at the production train (tile
 128, visible 131,072) and eval (512, 262,144) raster configs:
@@ -26,8 +26,9 @@ On `lara_workload` from the bench camera, at the production train (tile
   4. the reference backend (`ops/rasterizer/reference.py`) at the tool's
      size: ms of one forward (host clock, synchronised) and the PSNR of
      the train and eval renders against it, and of a train-budget render
-     at 32×32 tiles (512 entries a tile: the same 0.5 a pixel; a splat's
-     radius clamped at 32 px, not 16).
+     at each of `--tiles` that divides the size (default 32×32 and 64×64:
+     tile²/2 entries a tile, the same 0.5 a pixel; a splat's radius clamped
+     at the tile, not at 16 px; tile 64 runs as sub-tiles of 32).
 
 `ms` is a host-clock slope ended by a synchronise (`timing.slope_time`);
 on the card `dev_ms` is the device time of the same calls, a few queued
@@ -95,7 +96,11 @@ def _profiled(fn, dev, op: str = "aten::bmm", top: int = 0) -> dict:
     return res
 
 
-def run(device="cuda", size: int = SIZE, n: int = N_SURFELS, quick: bool = False) -> dict:
+TRUNCATION_TILES = (32, 64)
+
+
+def run(device="cuda", size: int = SIZE, n: int = N_SURFELS, quick: bool = False,
+        tiles=TRUNCATION_TILES) -> dict:
     dev = tool_device(device)
     banner(dev)
     scene = lara_workload(n, 0, dev)
@@ -185,8 +190,10 @@ def run(device="cuda", size: int = SIZE, n: int = N_SURFELS, quick: bool = False
                                           res[name]["bmm_per_render"].items()}), flush=True)
 
     with torch.no_grad():
-        images["train_tile32"] = render_view(
-            cam, None, *scene, bg, production_config(size, tile=32, tile_budget=512))["image"]
+        for tile in (t for t in tiles if size % t == 0):
+            images[f"train_tile{tile}"] = render_view(
+                cam, None, *scene, bg,
+                production_config(size, tile=tile, tile_budget=tile * tile // 2))["image"]
         fetch(None)
         t0 = time.perf_counter()
         ref = rasterize(*act, cam, bg, production_config(size, backend="reference")).image
@@ -203,9 +210,11 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--size", type=int, default=SIZE)
     ap.add_argument("--n", type=int, default=N_SURFELS)
+    ap.add_argument("--tiles", type=int, nargs="*", default=list(TRUNCATION_TILES),
+                    help="tiles of the train-budget renders held against the reference")
     ap.add_argument("--quick", action="store_true", help="few repetitions, one trial")
     a = ap.parse_args(argv)
-    print(json.dumps(run(a.device, a.size, a.n, a.quick)))
+    print(json.dumps(run(a.device, a.size, a.n, a.quick, a.tiles)))
     return 0
 
 

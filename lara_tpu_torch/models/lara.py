@@ -42,6 +42,7 @@ from lara_tpu_torch.ops.renderer import render_view, render_view_rebind
 from lara_tpu_torch.parallel import tp
 from lara_tpu_torch.utils.camera import Camera, invert_rigid, ray_to_plucker
 from lara_tpu_torch.utils.sh import rsh_cart_3
+from lara_tpu_torch.utils.trace import span, spanned
 
 
 def build_dense_grid(reso: int, scene_size: float, device=None) -> torch.Tensor:
@@ -211,13 +212,16 @@ class LaRaNet(nn.Module):
         bv, h, w, _ = imgs.shape
         p = self.cfg.model.patch_size
         with self._autocast():
-            tokens = self.img_encoder(imgs)                  # [BV, L, C]
+            with span("network.vit"):
+                tokens = self.img_encoder(imgs)              # [BV, L, C]
             feats = tokens.reshape(bv, h // p, w // p, -1)
             plucker = ray_to_plucker(rays_down)
             dir_feat = torch.cat([rsh_cart_3(plucker[..., :3]),
                                   rsh_cart_3(plucker[..., 3:6])], dim=-1)
-            return self.dir_norm(feats, dir_feat)
+            with span("network.modln"):
+                return self.dir_norm(feats, dir_feat)
 
+    @spanned("network.feat_vol")
     def build_feat_vol(self, feats: torch.Tensor, w2cs: torch.Tensor,
                        ixts: torch.Tensor, img_hw) -> torch.Tensor:
         """Sample per-view features at projected voxel centers
@@ -237,6 +241,7 @@ class LaRaNet(nn.Module):
         sampled = torch.stack(sampled)                       # [BV, P, C]
         return sampled.reshape(sampled.shape[0], reso, reso, reso, -1).to(feats.dtype)
 
+    @spanned("network")
     def forward(self, batch: Dict, with_fine: bool = False, train: bool = False,
                 return_buffer: bool = False, render_scale: float = 1.0,
                 n_views_sel: Optional[int] = None) -> Dict:
@@ -290,10 +295,12 @@ class LaRaNet(nn.Module):
             feat_vol = torch.cat([feat_vol, ve], dim=-1)
 
         with self._autocast():
-            volume = self.vol_decoder(feat_vol, view_mask)   # [B, 2R, 2R, 2R, out]
+            with span("network.volume"):
+                volume = self.vol_decoder(feat_vol, view_mask)   # [B, 2R, 2R, 2R, out]
             volume_feat_up = volume.reshape(B, -1, m.vol_embedding_out_dim)
-            offset, sh_c, scaling_c, rotation_c, opacity_c = self.decoder.forward_coarse(
-                volume_feat_up, self.opacity_shift, self.scaling_shift)
+            with span("network.coarse_decoder"):
+                offset, sh_c, scaling_c, rotation_c, opacity_c = self.decoder.forward_coarse(
+                    volume_feat_up, self.opacity_shift, self.scaling_shift)
 
         # offsets live inside their voxel cell (lightning/network.py:425-429);
         # voxel v owns surfel rows v*K .. v*K+K-1
@@ -357,6 +364,7 @@ class LaRaNet(nn.Module):
             outputs["render_pkg"] = buffers
         return outputs
 
+    @spanned("network.fine_stage")
     def _fine_stage(self, batch, coarse_out, volume_feat_up, centers, sh_c,
                     opacity_c, n_in: int, img_hw, view_mask=None):
         """Static-budget fine refinement (lightning/network.py:502-525):

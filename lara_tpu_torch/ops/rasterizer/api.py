@@ -15,6 +15,7 @@ from lara_tpu_torch.ops.rasterizer.reference import rasterize_reference
 from lara_tpu_torch.ops.rasterizer.tiled import BinnedView, repack_from_binned
 from lara_tpu_torch.ops.rasterizer.types import RasterizeConfig, RenderOutput
 from lara_tpu_torch.utils.camera import Camera
+from lara_tpu_torch.utils.trace import span
 
 
 def resolve_backend(backend: str) -> str:
@@ -79,6 +80,8 @@ def rasterize_rebind(
     caller disabled must be exactly 0."""
     if binned is None or cfg.backend == "reference":
         return rasterize(means3d, shs, opacities, scales, rotations, camera, bg, cfg)
-    g = preprocess_surfels(means3d, shs, opacities, scales, rotations, camera, cfg)
-    packed = repack_from_binned(g, binned, cfg)
+    with span("raster.preprocess"):
+        g = preprocess_surfels(means3d, shs, opacities, scales, rotations, camera, cfg)
+    with span("raster.gather"):
+        packed = repack_from_binned(g, binned, cfg)
     return blend_binned_cuda(packed, binned, camera, bg, cfg)

@@ -327,11 +327,15 @@ class _BlendFunction(torch.autograd.Function):
     counterpart of `blend_tiles_pallas`'s custom VJP): with
     `cfg.stash_carries` the stash forward and the backward from it, else
     the forward without stash and the replay backward, which keeps only
-    the forward's inputs alive between the passes."""
+    the forward's inputs alive between the passes. Without `train` (no
+    gradient wanted) the forward alone, under the same op, which owns the
+    kernel's launch in a profile."""
 
     @staticmethod
-    def forward(ctx, entries, counts, scalars, cfg):
+    def forward(ctx, entries, counts, scalars, cfg, train):
         ctx.cfg = cfg
+        if not train:
+            return blend_fwd(entries, counts, scalars, cfg)
         if cfg.stash_carries:
             out, carries, ndone = blend_fwd(entries, counts, scalars, cfg, stash=True)
             ctx.save_for_backward(entries, counts, scalars, carries, ndone)
@@ -346,7 +350,7 @@ class _BlendFunction(torch.autograd.Function):
             grad = blend_bwd(*ctx.saved_tensors, cot, ctx.cfg)
         else:
             grad = blend_bwd_replay(*ctx.saved_tensors, cot, ctx.cfg)
-        return grad, None, None, None
+        return grad, None, None, None, None
 
 
 def blend_tiles(entries: torch.Tensor, counts: torch.Tensor,
@@ -361,9 +365,8 @@ def blend_tiles(entries: torch.Tensor, counts: torch.Tensor,
         return blend_tiles_reference(entries, counts, scalars, cfg)
     if dev.type != "cuda":
         raise ValueError(f"blend_tiles runs on cuda or cpu tensors, not {dev}")
-    if torch.is_grad_enabled() and entries.requires_grad:
-        return _BlendFunction.apply(entries, counts, scalars, cfg)
-    return blend_fwd(entries, counts, scalars, cfg)
+    return _BlendFunction.apply(entries, counts, scalars, cfg,
+                                torch.is_grad_enabled() and entries.requires_grad)
 
 
 def blend_tiles_reference(entries: torch.Tensor, counts: torch.Tensor,

@@ -33,6 +33,7 @@ import torch
 
 from lara_tpu_torch.ops.rasterizer.cuda_windows import tile_windows_reference
 from lara_tpu_torch.ops.rasterizer.types import ProjectedSurfels, RasterizeConfig
+from lara_tpu_torch.utils import trace
 
 _GIDX_BITS = 19   # supports V ≤ 524288 surfels (64³·K=2, the LaRa maximum)
 _BOUND_BITS = 5   # bits per packed tile-bound field (tiles_x/y ≤ 32)
@@ -142,7 +143,8 @@ def bin_view(g: ProjectedSurfels, cfg: RasterizeConfig):
     packed is [V, 13] in depth order, or with pack_mode "fused" (and
     bin_mode "sort") [N, 13] elementwise, the windows holding original ids.
     bin_mode "count" always packs in depth order: its slot_pos inverse is
-    defined over compacted rows."""
+    defined over compacted rows. Under a profiler it adds to the binning's
+    counters (`utils/trace.py`) where the tile budget clamps the counts."""
     n = g.depth.shape[0]
     v = min(cfg.visible_budget, n) if cfg.visible_budget else n
     if v > (1 << _GIDX_BITS) or cfg.num_tiles >= (1 << 11):
@@ -194,9 +196,10 @@ def _windows_sort(bounds_v: torch.Tensor, cfg: RasterizeConfig, order_v=None):
     return (win_gidx, *_validity(counts, k_budget))
 
 
-def _validity(counts: torch.Tensor, k_budget: int):
-    """(entry_valid [T, K], counts clamped to K)."""
-    counts = torch.clamp(counts, max=k_budget)
+def _validity(raw: torch.Tensor, k_budget: int):
+    """(entry_valid [T, K], the raw counts clamped to K)."""
+    counts = torch.clamp(raw, max=k_budget)
+    trace.count_binning(raw, counts, k_budget)
     k_iota = torch.arange(k_budget, dtype=torch.int32, device=counts.device)
     return k_iota[None, :] < counts[:, None], counts
 

@@ -12,6 +12,7 @@ from lara_tpu_torch.ops.rasterizer import (RasterizeConfig, rasterize,
                                            rasterize_and_bin, rasterize_rebind)
 from lara_tpu_torch.utils.camera import Camera, depth_to_normal
 from lara_tpu_torch.utils.quat import normalize as l2_normalize
+from lara_tpu_torch.utils.trace import span, spanned
 
 
 def opacity_activation(x):
@@ -27,6 +28,7 @@ def rotation_activation(x):
     return l2_normalize(x.to(torch.float32))
 
 
+@spanned("raster.render")
 def render_view(
     camera: Camera,
     rays: Optional[torch.Tensor],   # [H, W, 6] world rays for depth->normal; None to skip
@@ -45,16 +47,18 @@ def render_view(
     rend_normal / rend_dist (/ depth_normal), all [H, W, ...]. With
     return_binned, also the view's binning for `render_view_rebind`."""
     f32 = torch.float32
-    args = (centers.to(f32), shs.to(f32),
-            opacity_activation(opacity_raw.reshape(-1)),
-            scaling_activation(scaling_raw), rotation_activation(rotation_raw),
-            camera, bg_color.to(f32), cfg)
+    with span("raster.preprocess"):
+        args = (centers.to(f32), shs.to(f32),
+                opacity_activation(opacity_raw.reshape(-1)),
+                scaling_activation(scaling_raw), rotation_activation(rotation_raw),
+                camera, bg_color.to(f32), cfg)
     binned = None
     if return_binned:
         out, binned = rasterize_and_bin(*args)
     else:
         out = rasterize(*args)
-    frame = _postprocess(out, camera, rays, depth_ratio)
+    with span("raster.post"):
+        frame = _postprocess(out, camera, rays, depth_ratio)
     return (frame, binned) if return_binned else frame
 
 
@@ -81,6 +85,7 @@ def _postprocess(out, camera: Camera, rays, depth_ratio: float):
     return frame
 
 
+@spanned("raster.rerender")
 def render_view_rebind(
     camera: Camera,
     rays: Optional[torch.Tensor],
@@ -101,9 +106,11 @@ def render_view_rebind(
     (lightning/network.py:502-525); `keep_mask` reproduces the reference's
     -1e4-logit disabling of deselected surfels."""
     f32 = torch.float32
-    opacity = torch.where(keep_mask, opacity_activation(opacity_raw.reshape(-1)), 0.0)
-    out = rasterize_rebind(
-        binned, centers.to(f32), shs.to(f32), opacity,
-        scaling_activation(scaling_raw), rotation_activation(rotation_raw),
-        camera, bg_color.to(f32), cfg)
-    return _postprocess(out, camera, rays, depth_ratio)
+    with span("raster.preprocess"):
+        opacity = torch.where(keep_mask, opacity_activation(opacity_raw.reshape(-1)), 0.0)
+        args = (centers.to(f32), shs.to(f32), opacity,
+                scaling_activation(scaling_raw), rotation_activation(rotation_raw),
+                camera, bg_color.to(f32), cfg)
+    out = rasterize_rebind(binned, *args)
+    with span("raster.post"):
+        return _postprocess(out, camera, rays, depth_ratio)

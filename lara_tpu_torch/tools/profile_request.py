@@ -14,8 +14,9 @@ nothing in serving, which has no backward. It prints:
   3. `torch.profiler` over the same requests: the ops by device time, the
      device kernels per request, their summed time, and the busy share
      (union of kernel intervals / wall time of the profiled requests);
-  4. a stage breakdown with `torch.cuda.synchronize()` around every stage,
-     which serialises host and device and so adds up to more than (2).
+  4. from the same profile, the device ms a request under each of the
+     program's spans (`lara_tpu_torch/utils/trace.py`), each kernel under
+     the innermost span around the host op that launched it.
 """
 
 from __future__ import annotations
@@ -23,14 +24,15 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
-import functools
 import statistics
 import time
-from contextlib import contextmanager
 
 import torch
 
+from lara_tpu_torch.utils import trace
+
 REQUESTS = 5
+_EVAL = "autograd::engine::evaluate_function"
 
 
 def _union_us(intervals) -> float:
@@ -48,53 +50,43 @@ def _kernel_intervals(prof):
             if e.device_type == cuda]
 
 
-@contextmanager
-def _stage_timers(net, times):
-    """Patch the path's stage functions with synchronised timers; undo on exit."""
-    from lara_tpu_torch.models import vit
-    from lara_tpu_torch.ops import renderer
-    from lara_tpu_torch.ops.rasterizer import api, cuda, cuda_blend
+def span_device_ms(prof, steps: int) -> dict:
+    """Device ms a step by the program's innermost span (`trace.SPANS`)
+    around the host op that launched each kernel; a backward kernel counts
+    under its forward op's span (the profiler's sequence number and forward
+    thread), "(no span)" where no span holds the op."""
+    cpu = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
 
-    def timed(name, fn):
-        @functools.wraps(fn)
-        def w(*a, **k):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            r = fn(*a, **k)
-            torch.cuda.synchronize()
-            times[name] += (time.perf_counter() - t0) * 1e3
-            return r
-        return w
+    def span_of(e):
+        while e is not None and e.name not in trace.SPANS:
+            e = e.cpu_parent
+        return None if e is None else e.name
 
-    patches = [
-        (net, "encode_images", "encode_images (ViT + ModLN)"),
-        (net, "build_feat_vol", "build_feat_vol"),
-        (net.vol_decoder, "forward", "vol_decoder"),
-        (net.decoder, "forward_coarse", "coarse decoder"),
-        (net, "_fine_stage", "fine_stage (top-M + grid_sample + decoder)"),
-        (cuda, "preprocess_surfels", "preprocess (coarse)"),
-        (api, "preprocess_surfels", "preprocess (fine rebind)"),
-        (cuda, "bin_view", "bin_view (sort + windows)"),
-        (api, "repack_from_binned", "repack (fine rebind)"),
-        (cuda, "window_gather", "window_gather"),
-        (cuda_blend, "blend_tiles", "blend kernel"),
-        (vit, "flash_mha", "flash attention forward (with --flash)"),
-        (renderer, "_postprocess", "postprocess (normals)"),
-    ]
-    saved = []
-    for obj, attr, name in patches:
-        had_own = attr in vars(obj)
-        orig = getattr(obj, attr)
-        saved.append((obj, attr, had_own, orig))
-        setattr(obj, attr, timed(name, orig))
-    try:
-        yield
-    finally:
-        for obj, attr, had_own, orig in reversed(saved):
-            if had_own:
-                setattr(obj, attr, orig)
-            else:
-                delattr(obj, attr)
+    fwd = {}
+    for e in cpu:
+        if e.sequence_nr >= 0 and not e.name.startswith(_EVAL):
+            fwd.setdefault((e.thread, e.sequence_nr), span_of(e))
+
+    def owner(op):
+        name, x = span_of(op), op
+        if name is None:
+            while x is not None and not x.name.startswith(_EVAL):
+                x = x.cpu_parent
+            name = None if x is None else fwd.get((x.fwd_thread, x.sequence_nr))
+        return name or "(no span)"
+
+    ms = collections.Counter()
+    for op in cpu:
+        for k in op.kernels:
+            ms[owner(op)] += k.duration / 1e3 / steps
+    return dict(ms.most_common())
+
+
+def print_spans(prof, steps: int, per: str) -> None:
+    ms = span_device_ms(prof, steps)
+    print(f"[spans] device ms a {per} by the program's spans (Σ {sum(ms.values()):.3f}):")
+    for name, v in ms.items():
+        print(f"[spans] {name:<24s} {v:9.3f}")
 
 
 def main(argv=None) -> int:
@@ -147,19 +139,7 @@ def main(argv=None) -> int:
           f"{prof_wall_us / r / 1e3:.3f} ms wall under the profiler: busy share "
           f"{busy_us / prof_wall_us:.4f}")
 
-    times = collections.defaultdict(float)
-    with _stage_timers(net, times):
-        fwd(batch)                       # warm the patched path
-        times.clear()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(r):
-            fwd(batch)
-        torch.cuda.synchronize()
-        synced = (time.perf_counter() - t0) * 1e3 / r
-    print(f"[stages] synchronised request {synced:.3f} ms; stages in ms per request:")
-    for name, ms in sorted(times.items(), key=lambda kv: -kv[1]):
-        print(f"[stages] {name:<45s} {ms / r:9.3f}")
+    print_spans(prof, r, "request")
     print(nvidia_smi_line())
     return 0
 

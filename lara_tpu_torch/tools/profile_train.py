@@ -17,9 +17,9 @@ It prints:
   3. `torch.profiler` over the same micro-steps: the ops by device time,
      the device events per micro-step, their summed time and the busy
      share (union of kernel intervals / wall time under the profiler);
-  4. a stage breakdown with `torch.cuda.synchronize()` around every stage:
-     the forward's stages (as `profile_request`), the losses, the
-     backward and the optimizer;
+  4. from the same profile, the device ms a micro-step under each of the
+     program's spans (as `profile_request`; a backward kernel under its
+     forward op's span);
   5. peak device memory of an optimizer step (grad_accum micro-steps, so
      that every reading spans both micro-steps of a pair) with
      `model.remat` on and off, and with the blend's stash on and off (the
@@ -29,14 +29,13 @@ It prints:
 from __future__ import annotations
 
 import argparse
-import collections
 import dataclasses
 import statistics
 import time
 
 import torch
 
-from lara_tpu_torch.tools.profile_request import _kernel_intervals, _stage_timers, _union_us
+from lara_tpu_torch.tools.profile_request import _kernel_intervals, _union_us, print_spans
 
 MICRO_STEPS = 4
 
@@ -55,7 +54,6 @@ def main(argv=None) -> int:
     from chip_smoke import make_batch, nvidia_smi_line
     from lara_tpu_torch.config import Config
     from lara_tpu_torch.models import LaRaNet
-    from lara_tpu_torch.train.loss import compute_losses
     from lara_tpu_torch.train.state import TrainState
     from lara_tpu_torch.train.step import make_train_step
 
@@ -111,36 +109,7 @@ def main(argv=None) -> int:
           f"{prof_wall_us / r / 1e3:.3f} ms wall under the profiler: busy share "
           f"{busy_us / prof_wall_us:.4f}")
 
-    times = collections.defaultdict(float)
-
-    def timed(name, fn, *args):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = fn(*args)
-        torch.cuda.synchronize()
-        times[name] += (time.perf_counter() - t0) * 1e3
-        return res
-
-    def staged_micro_step():
-        out = timed("forward (all stages)", lambda: net(batch, with_fine=True, train=True))
-        loss, _ = timed("losses", compute_losses, batch, out, state.step // k)
-        timed("backward", loss.backward)
-        timed("optimizer (AdamW every 2nd)", state.apply_gradients)
-
-    net.train()
-    with _stage_timers(net, times):
-        staged_micro_step()
-        times.clear()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(r):
-            staged_micro_step()
-        torch.cuda.synchronize()
-        synced = (time.perf_counter() - t0) * 1e3 / r
-    print(f"[stages] synchronised micro-step {synced:.3f} ms; stages in ms per "
-          f"micro-step (the forward's stages are inside 'forward (all stages)'):")
-    for name, ms in sorted(times.items(), key=lambda kv: -kv[1]):
-        print(f"[stages] {name:<45s} {ms / r:9.3f}")
+    print_spans(prof, r, "micro-step")
 
     def peak(what):
         while state.step % k:            # start at the first micro-step of a pair

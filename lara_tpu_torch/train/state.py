@@ -33,6 +33,7 @@ import torch.nn as nn
 
 from lara_tpu_torch.config import TrainConfig
 from lara_tpu_torch.parallel.mesh import all_reduce_grads_
+from lara_tpu_torch.utils.trace import span
 
 
 def decay_mask(net: nn.Module) -> Dict[str, bool]:
@@ -102,7 +103,8 @@ class TrainState:
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        all_reduce_grads_(self.params)
+        with span("allreduce"):
+            all_reduce_grads_(self.params)
         grads = [p.grad for p in self.params]
         if k > 1:
             torch._foreach_mul_(grads, 1.0 / k)

@@ -23,6 +23,7 @@ import torch
 from lara_tpu_torch.models.lara import LaRaNet
 from lara_tpu_torch.train.loss import compute_losses
 from lara_tpu_torch.train.state import TrainState
+from lara_tpu_torch.utils.trace import span
 
 
 def make_train_step(net: LaRaNet, state: TrainState, with_fine: bool,
@@ -37,9 +38,12 @@ def make_train_step(net: LaRaNet, state: TrainState, with_fine: bool,
     def step(batch: Dict) -> Dict:
         net.train()
         out = net(batch, with_fine=with_fine, train=True, n_views_sel=n_views_sel)
-        loss, stats = compute_losses(batch, out, state.step // grad_accum)
-        loss.backward()
-        state.apply_gradients()
+        with span("loss"):
+            loss, stats = compute_losses(batch, out, state.step // grad_accum)
+        with span("backward"):
+            loss.backward()
+        with span("optimizer"):
+            state.apply_gradients()
         stats = {k: v.detach() for k, v in stats.items()}
         stats["loss"] = loss.detach()
         return stats
@@ -55,7 +59,8 @@ def make_eval_step(net: LaRaNet, with_fine: bool = True) -> Callable:
     def step(batch: Dict, step: int) -> Tuple[Dict, Dict]:
         net.eval()
         out = net(batch, with_fine=with_fine, train=False)
-        loss, stats = compute_losses(batch, out, step)
+        with span("loss"):
+            loss, stats = compute_losses(batch, out, step)
         stats = dict(stats)
         stats["loss"] = loss
         return out, stats

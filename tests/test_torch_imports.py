@@ -40,7 +40,8 @@ def test_every_module_imports(probe):
                 "lara_tpu_torch.train.step", "lara_tpu_torch.config",
                 "lara_tpu_torch.train.loss", "lara_tpu_torch.train.state",
                 "lara_tpu_torch.ops.msssim", "lara_tpu_torch.models.remat",
-                "lara_tpu_torch.tools.profile_train",
+                "lara_tpu_torch.tools.profile_train", "lara_tpu_torch.tools.profile_request",
+                "lara_tpu_torch.utils.trace",
                 "lara_tpu_torch.ops.rasterizer.cuda_windows",
                 "lara_tpu_torch.tools.workload", "lara_tpu_torch.tools.profile_binning",
                 "lara_tpu_torch.utils.camera", "lara_tpu_torch.data",
